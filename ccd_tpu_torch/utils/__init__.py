@@ -1,0 +1,3 @@
+from ccd_tpu_torch.utils.device import resolve_device
+
+__all__ = ["resolve_device"]
