@@ -9,6 +9,7 @@ import torch
 from ccd_tpu_torch.checkpoints.from_jax import clean_recognizer_state_dict
 from ccd_tpu_torch.config import Config
 from ccd_tpu_torch.convertor import AttnConvertor
+from ccd_tpu_torch.models.pretrain import CCDPretrainModel
 from ccd_tpu_torch.models.recognizer import CCDRecognizer
 from ccd_tpu_torch.utils.device import resolve_device
 
@@ -52,6 +53,33 @@ def build_recognizer(config: Config, device: Union[str, torch.device] = "cuda",
     )
     model.reset_parameters(generator or torch.Generator().manual_seed(0))
     return model.to(device).eval(), convertor
+
+
+def build_pretrain_models(config: Config, device: Union[str, torch.device] = "cuda",
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[CCDPretrainModel, CCDPretrainModel]:
+    """Student (with SegHead + drop path) and teacher (plain), train.py:62-91.
+
+    Both are initialised on the CPU under ``generator`` (seed 0 when None),
+    student first, then moved to ``device``; ``init_pretrain_state`` makes the
+    teacher a copy of the student. ``device='cuda'`` without a card raises.
+    """
+    device = resolve_device(device)
+    arch = str(config.arch).replace("deit", "vit")
+    dtype = compute_dtype(config)
+    student = CCDPretrainModel(
+        arch=arch, patch_size=config.patch_size,
+        drop_path_rate=config.drop_path_rate, out_dim=config.out_dim,
+        use_bn_in_head=bool(config.use_bn_in_head),
+        norm_last_layer=bool(config.norm_last_layer), with_seg_head=True, dtype=dtype)
+    teacher = CCDPretrainModel(
+        arch=arch, patch_size=config.patch_size, drop_path_rate=0.0,
+        out_dim=config.out_dim, use_bn_in_head=bool(config.use_bn_in_head),
+        norm_last_layer=True, with_seg_head=False, dtype=dtype)
+    generator = generator or torch.Generator().manual_seed(0)
+    student.reset_parameters(generator)
+    teacher.reset_parameters(generator)
+    return student.to(device), teacher.to(device)
 
 
 def load_recognizer_params(path: str, model: CCDRecognizer) -> CCDRecognizer:

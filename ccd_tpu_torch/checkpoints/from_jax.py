@@ -8,12 +8,17 @@ package's ``CCDRecognizer`` (nested dicts of numpy arrays) is renamed and
 transposed here: Flax ``(in, out)`` kernels become ``(out, in)``, the NHWC
 patch-conv kernel ``(kh, kw, in, out)`` becomes ``(out, in, kh, kw)``, module
 names ``blocks_i`` / ``layer_i`` / ``norm_seg_i`` become ``blocks.i`` /
-``layer_stack.i`` / ``norm_seg.i``. Only numpy is seen here.
+``layer_stack.i`` / ``norm_seg.i``. The pretraining model's heads follow the
+reference's ``Sequential`` numbering: DINOHead ``mlp_j`` -> ``mlp.{0,2,4}``,
+``last_layer_g``/``last_layer_v`` -> ``last_layer.weight_g``/``weight_v``;
+SegHead ``head{i}.conv1/bn1/conv2/bn2`` -> ``mlahead.head{i}.{0,1,3,4}``,
+``unpool{j}_conv``/``unpool{j}_bn`` -> ``unpool{j}.{0,1}``, with the Flax
+``batch_stats`` (mean, var) as the BatchNorm buffers. Only numpy is seen here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -80,8 +85,41 @@ def _nrtr(p: Mapping[str, Any], prefix: str, sd: Dict[str, np.ndarray]) -> None:
     _put(sd, f"{prefix}classifier", p["classifier"])
 
 
+def _dino_head(p: Mapping[str, Any], prefix: str, sd: Dict[str, np.ndarray]) -> None:
+    """``DINOHead`` tree -> reference names (Sequential mlp + weight_norm)."""
+    nlayers = sum(1 for k in p if k.startswith("mlp_"))
+    for j in range(nlayers):
+        _put(sd, f"{prefix}mlp.{2 * j}", p[f"mlp_{j}"])
+    sd[f"{prefix}last_layer.weight_g"] = _np(p["last_layer_g"]).reshape(-1, 1)
+    sd[f"{prefix}last_layer.weight_v"] = _np(p["last_layer_v"]).T
+
+
+def _seg_head(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
+              sd: Dict[str, np.ndarray]) -> None:
+    """``SegHead`` params + batch_stats -> reference names."""
+    conv = lambda k: k.transpose(3, 2, 0, 1)             # (kh,kw,in,out) -> (out,in,kh,kw)
+    conv_transpose = lambda k: k.transpose(2, 3, 0, 1)   # (kh,kw,in,out) -> (in,out,kh,kw)
+
+    def bn(tp: str, params: Mapping[str, Any], st: Mapping[str, Any]) -> None:
+        _put(sd, tp, params)
+        sd[f"{tp}.running_mean"] = _np(st["mean"])
+        sd[f"{tp}.running_var"] = _np(st["var"])
+
+    for i in (2, 3, 4):
+        hp, h, hs = f"{prefix}mlahead.head{i}.", p[f"head{i}"], stats[f"head{i}"]
+        _put(sd, f"{hp}0", h["conv1"], conv)
+        bn(f"{hp}1", h["bn1"], hs["bn1"])
+        _put(sd, f"{hp}3", h["conv2"], conv)
+        bn(f"{hp}4", h["bn2"], hs["bn2"])
+    for j in (1, 2):
+        _put(sd, f"{prefix}unpool{j}.0", p[f"unpool{j}_conv"], conv_transpose)
+        bn(f"{prefix}unpool{j}.1", p[f"unpool{j}_bn"], stats[f"unpool{j}_bn"])
+    _put(sd, f"{prefix}cls", p["cls"], conv)
+
+
 def _to_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    # a copy: the source may be a read-only view of a device array
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def vit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -108,6 +146,41 @@ def recognizer_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch
     _put(sd, "encoder.fc2", params["encoder"]["fc2"])
     _nrtr(params["decoder"], "decoder.", sd)
     return _to_torch(sd)
+
+
+def dino_head_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``DINOHead`` tree -> the port's DINOHead ``state_dict``."""
+    sd: Dict[str, np.ndarray] = {}
+    _dino_head(params, "", sd)
+    return _to_torch(sd)
+
+
+def seg_head_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``SegHead`` params and ``batch_stats`` -> the port's
+    SegHead ``state_dict`` (running statistics included)."""
+    sd: Dict[str, np.ndarray] = {}
+    _seg_head(params, batch_stats, "", sd)
+    return _to_torch(sd)
+
+
+def pretrain_state_dicts_from_jax(student_params: Mapping[str, Any],
+                                  student_stats: Mapping[str, Any],
+                                  teacher_params: Mapping[str, Any]
+                                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The JAX package's pretraining state (student params ``backbone`` /
+    ``segmentation`` / ``head``, student ``batch_stats``, teacher params
+    ``backbone`` / ``head``) -> (student, teacher) ``state_dict``s that the
+    port's ``CCDPretrainModel``s load with ``strict=True``."""
+    student: Dict[str, np.ndarray] = {}
+    _vit(student_params["backbone"], "backbone.", student)
+    _seg_head(student_params["segmentation"], student_stats["segmentation"],
+              "segmentation.", student)
+    _dino_head(student_params["head"], "head.", student)
+    teacher: Dict[str, np.ndarray] = {}
+    _vit(teacher_params["backbone"], "backbone.", teacher)
+    _dino_head(teacher_params["head"], "head.", teacher)
+    return _to_torch(student), _to_torch(teacher)
 
 
 def clean_recognizer_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

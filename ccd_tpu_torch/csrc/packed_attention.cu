@@ -31,74 +31,11 @@
 //
 // Plain C interface, loaded with ctypes; see ccd_tpu_torch/ops/flash_attention.py.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <math.h>
+#include "attention_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int KEYS = 64;  // keys per online-softmax step (bf16 kernel)
-constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use on sm_90
-constexpr int PAD = 8;    // bf16 elements of row padding in shared memory:
-                          // rows 16 bytes apart modulo 128, so the fragment
-                          // loads below are free of bank conflicts
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 bf16 matrices; lane l supplies the address of row l%8
-// of matrix l/8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-    uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
-
-// rows x D bf16 from device memory (row stride `stride` elements) into shared
-// memory (row stride D + PAD), 16 bytes per thread and step, bias[D] added on
-// the way (fp32 add, rounded to bf16 once, as a bf16 tensor add rounds).
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t stride,
-                                          int rows, const bf16* bias) {
-    constexpr int CHUNKS = D / 8;
-    for (int i = threadIdx.x; i < rows * CHUNKS; i += blockDim.x) {
-        const int r = i / CHUNKS;
-        const int c = (i % CHUNKS) * 8;
-        uint4 v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * stride + c));
-        if (bias != nullptr) {
-            uint4 bv = __ldg(reinterpret_cast<const uint4*>(bias + c));
-            __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(&v);
-            const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&bv);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                pv[j] = __floats2bfloat162_rn(__low2float(pv[j]) + __low2float(pb[j]),
-                                              __high2float(pv[j]) + __high2float(pb[j]));
-            }
-        }
-        *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) = v;
-    }
-}
 
 // grid (S / (16 * WARPS), H, B), block 32 * WARPS threads,
 // dynamic shared memory (16 * WARPS + 2 * S) * (D + PAD) * 2 bytes.
@@ -130,17 +67,7 @@ packed_attention_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
 
     // A fragments of this warp's 16 query rows, for all of D
     uint32_t qa[D / 16][4];
-    {
-        const bf16* q0 = Qs + (warp * 16 + g) * LD + 2 * t;
-        const bf16* q1 = q0 + 8 * LD;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-            qa[kk][0] = ld32(q0 + kk * 16);
-            qa[kk][1] = ld32(q1 + kk * 16);
-            qa[kk][2] = ld32(q0 + kk * 16 + 8);
-            qa[kk][3] = ld32(q1 + kk * 16 + 8);
-        }
-    }
+    load_a_fragments<D>(qa, Qs + warp * 16 * LD, g, t);
 
     float o[D / 8][4];
 #pragma unroll
@@ -219,22 +146,9 @@ packed_attention_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
 
     // Each warp overwrites its own 16 rows of the Q tile (only it read them,
     // and they are in registers now), then stores them 16 bytes a thread.
-    bf16* ot = Qs + warp * 16 * LD;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(ot + g * LD + j * 8 + 2 * t) =
-            pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
-        *reinterpret_cast<uint32_t*>(ot + (g + 8) * LD + j * 8 + 2 * t) =
-            pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
-    }
-    __syncwarp();
-    bf16* orow = out + ((size_t)b * S + (size_t)tile * ROWS + warp * 16) * C + h * D;
-    constexpr int CHUNKS = D / 8;
-    for (int i = lane; i < 16 * CHUNKS; i += 32) {
-        const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-        *reinterpret_cast<uint4*>(orow + (size_t)r * C + c) =
-            *reinterpret_cast<const uint4*>(ot + r * LD + c);
-    }
+    store_warp_tile<D>(Qs + warp * 16 * LD,
+                       out + ((size_t)b * S + (size_t)tile * ROWS + warp * 16) * C + h * D,
+                       C, o, inv0, inv1, lane);
 }
 
 constexpr int F32_ROWS = 64;  // query rows (= threads) per block, fp32 kernel

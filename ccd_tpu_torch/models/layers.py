@@ -2,8 +2,9 @@
 
 Parameters are always fp32. ``dtype`` is the compute type: as Flax's
 ``promote_dtype`` does, a :class:`Dense` casts its input and its weights to
-``dtype`` at use; a :class:`LayerNorm` computes in fp32 whatever the input
-and returns ``dtype``. (``ccd_tpu`` gets these from ``flax.linen``; the port
+``dtype`` at use, and so do :class:`Conv2d` and :class:`ConvTranspose2d`; a
+:class:`LayerNorm` and a :class:`BatchNorm` compute in fp32 whatever the input
+and return ``dtype``. (``ccd_tpu`` gets these from ``flax.linen``; the port
 has no other home for them.)
 """
 
@@ -75,6 +76,68 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
                          self.eps)
+        return y.to(self.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (NCHW) with fp32 parameters and a compute ``dtype``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (NCHW) with fp32 parameters and a compute ``dtype``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
+                                  self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over all axes but the channel axis 1, as Flax's
+    ``nn.BatchNorm(momentum=0.9)`` does it: statistics and arithmetic in
+    fp32, the variance as ``E[x^2] - E[x]^2`` clamped at 0, and the running
+    variance updated with that BIASED batch variance (``nn.BatchNorm2d``
+    keeps the unbiased one, so its running statistics drift apart from
+    Flax's). Training mode normalises with the batch statistics and updates
+    the running ones in place; evaluation mode uses the running ones.
+    Parameter and buffer names are ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.training:
+            axes = [0] + list(range(2, x.ndim))
+            mean = x.mean(axes)
+            var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.dtype)
 
 

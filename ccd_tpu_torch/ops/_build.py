@@ -1,15 +1,15 @@
 """Builds the package's CUDA sources into shared libraries at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into ``_build/lib<name>_<hash of the source>.so`` and loaded
-with ``ctypes``. Nothing here runs at import time: the CPU-only tests import
+for ``sm_90a`` into ``_build/lib<name>_<hash of the sources>.so`` (the hash
+covers the shared ``csrc/*.cuh`` headers too) and loaded with ``ctypes``. Nothing here runs at import time: the CPU-only tests import
 every module of the package on machines with no ``nvcc``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, List, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -32,27 +32,52 @@ def find_nvcc() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
-def build_library(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` if its library is not there yet; return the
-    library's path. Raises with the compiler's output when the build fails."""
+def _paths(name: str):
+    """(source, library) paths of ``csrc/<name>.cu``."""
+    import glob
     import hashlib
-    import subprocess
 
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-    if os.path.isfile(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
-    return lib
+    digest = hashlib.sha1()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
+def build_libraries(names: Sequence[str]) -> List[str]:
+    """Compile every ``csrc/<name>.cu`` whose library is not there yet, all
+    ``nvcc`` runs started together; return the libraries' paths. Raises with
+    the compiler's output when a build fails."""
+    import subprocess
+
+    libs, running = [], []
+    for name in names:
+        src, lib = _paths(name)
+        libs.append(lib)
+        if os.path.isfile(lib):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        running.append((cmd, tmp, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failures = []
+    for cmd, tmp, lib, proc in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
+
+
+def build_library(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` if its library is not there yet; return the
+    library's path."""
+    return build_libraries([name])[0]
 
 
 def load_library(name: str):

@@ -1,26 +1,35 @@
 """Packed multi-head attention: ``softmax((q+bq)(k+bk)^T * scale) (v+bv)``
-per head, straight from the qkv projection ``(B, S, 3C)`` to ``(B, S, C)``.
+per head, straight from the qkv projection ``(B, S, 3C)`` to ``(B, S, C)``,
+with its gradient.
 
 Counterpart of ``ccd_tpu/ops/flash_attention.py::mha_packed_bias`` /
-``mha_packed`` (the Pallas kernel ``_packed_fwd_kernel``). Channel order
-within 3C is torch's qkv packing: ``[q h0..hH | k h0..hH | v h0..hH]``, each
-head D wide (``vision_transformer.py:160-167``), so no transpose happens on
-the way in or out.
+``mha_packed`` (the Pallas kernels ``_packed_fwd_kernel`` and
+``_packed_bwd_kernel`` under one custom VJP). Channel order within 3C is
+torch's qkv packing: ``[q h0..hH | k h0..hH | v h0..hH]``, each head D wide
+(``vision_transformer.py:160-167``), so no transpose happens on the way in or
+out, in either direction: the backward emits the ``(B, S, 3C)`` cotangent of
+the projection's output as it stands.
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``csrc/packed_attention.cu`` (built with ``nvcc`` at first use, bound with
-``ctypes``) or raises; there is no fallback. On a CPU tensor it computes
-:func:`mha_packed_bias_plain`, the same arithmetic in plain PyTorch: fp32
+On a CUDA tensor the wrapper launches the hand-written Hopper kernels in
+``csrc/packed_attention.cu`` and ``csrc/packed_attention_bwd.cu`` (built with
+``nvcc`` at first use, bound with ``ctypes``) or raises; there is no
+fallback. On a CPU tensor it computes :func:`mha_packed_bias_plain` and
+:func:`mha_packed_bias_bwd_plain`, the same arithmetic in plain PyTorch: fp32
 logits and softmax, probabilities cast to the input type before ``p @ v``,
-fp32 accumulation. (The kernel normalises by the fp32 row sum after the
-second product rather than before the cast, which differs from the plain
-version only by the rounding of ``p``.)
+fp32 accumulation; in the backward ``ds`` cast to the input type before the
+``dq``/``dk`` products and ``p`` before ``dv``. (The forward kernel
+normalises by the fp32 row sum after the second product rather than before
+the cast, which differs from the plain version only by the rounding of
+``p``.) The forward saves its two inputs for the backward and nothing of
+size S x S.
 
-Bound on an H100, for the ViT-Small evaluation shape (B, S, C, H) =
-(288, 256, 384, 6) in bf16: the call must read 169.9 MB and write 56.6 MB,
-0.068 ms at 3.35 TB/s, against 29.0 GFLOP, 0.029 ms at 989 TFLOP/s — bytes
-bound it, so the kernel's job is to touch qkv and the output once and
-nothing else. Forward only: the backward arrives with the training path.
+Bound on an H100 in bf16, bytes in both directions: at the ViT-Small
+evaluation shape (B, S, C, H) = (288, 256, 384, 6) the forward must read
+169.9 MB and write 56.6 MB, 0.068 ms at 3.35 TB/s, against 29.0 GFLOP,
+0.029 ms at 989 TFLOP/s; at the pretraining shape B = 128 the backward must
+read qkv and dO and write dqkv, 176.2 MB, 0.053 ms, against 32.2 GFLOP,
+0.033 ms. So the kernels' job is to touch qkv, dO, dqkv and the output once
+and nothing else.
 """
 
 from __future__ import annotations
@@ -32,9 +41,9 @@ import torch
 _SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _ROW_TILE = 64                # S must be a multiple of this on the card
 _HEAD_DIMS = (32, 64)
-# what packed_attention_forward returns besides CUDA's own (positive) error codes
+# what the C entry points return besides CUDA's own (positive) error codes
 _REFUSALS = {-1: "unsupported head dim",
-             -2: "S too large: one head's K and V do not fit in shared memory"}
+             -2: "S too large: one head's rows do not fit in shared memory"}
 
 
 def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int) -> None:
@@ -67,64 +76,160 @@ def mha_packed_bias_plain(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     return out.permute(0, 2, 1, 3).reshape(b, s, c)
 
 
-def _launch(qkv: torch.Tensor, bias: Optional[torch.Tensor], scale: float,
-            heads: int) -> torch.Tensor:
+def mha_packed_bias_bwd_plain(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                              dout: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel, any device: the cotangent
+    ``dqkv`` (B, S, 3C) of the un-biased projection, from ``dout`` (B, S, C).
+    The rounding points are the kernel's."""
+    _check(qkv, bias, heads)
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    dtype = qkv.dtype
+    if bias is not None:
+        qkv = qkv + bias.to(dtype)
+    q, k, v = (x.float() for x in
+               qkv.view(b, s, 3, heads, c // heads).permute(2, 0, 3, 1, 4))  # (B,H,S,D)
+    do = dout.view(b, s, heads, c // heads).permute(0, 2, 1, 3).float()
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds * scale).to(dtype).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do)
+    dqkv = torch.stack([dq, dk, dv]).to(dtype)                          # (3,B,H,S,D)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, c3)
+
+
+def _kernel_args(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int):
+    """Checks what the kernels do not take; returns the bias as they want it."""
+    d = qkv.shape[-1] // 3 // heads
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernel (takes {_HEAD_DIMS})")
+    if qkv.shape[1] % _ROW_TILE != 0:
+        raise ValueError(f"S = {qkv.shape[1]} must be a multiple of {_ROW_TILE}")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    if bias is not None:
+        bias = bias.detach().to(qkv.dtype).contiguous()
+    return bias
+
+
+def _call(entry: str, library: str, tensors, qkv: torch.Tensor, scale: float,
+          heads: int) -> None:
+    """Launch C entry point ``entry`` of ``csrc/<library>.cu`` on the current
+    stream: the pointers of ``tensors`` ((name, tensor or None) pairs), then
+    B, S, H, D, is_bf16, scale, stream."""
     import ctypes
 
     from ccd_tpu_torch.ops._build import load_library
 
-    b, s, c3 = qkv.shape
-    c = c3 // 3
-    d = c // heads
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel (takes {_HEAD_DIMS})")
-    if s % _ROW_TILE != 0:
-        raise ValueError(f"S = {s} must be a multiple of {_ROW_TILE}")
-    if not qkv.is_contiguous():
-        raise ValueError("qkv must be contiguous")
-    if torch.is_grad_enabled() and (qkv.requires_grad
-                                    or (bias is not None and bias.requires_grad)):
-        raise NotImplementedError("the packed-attention kernel is forward only; "
-                                  "call it under torch.no_grad()")
-    if bias is not None:
-        bias = bias.detach().to(qkv.dtype).contiguous()
-    out = torch.empty((b, s, c), dtype=qkv.dtype, device=qkv.device)
-    for name, t in (("qkv", qkv), ("bias", bias), ("out", out)):
+    for name, t in tensors:
         if t is not None and t.data_ptr() % 16 != 0:
             raise ValueError(f"{name} is not 16-byte aligned")
-
-    lib = load_library("packed_attention")
-    fn = lib.packed_attention_forward
+    fn = getattr(load_library(library), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    b, s, c3 = qkv.shape
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(), bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), b, s, heads, d, int(qkv.dtype == torch.bfloat16),
-                 float(scale), stream)
+        err = fn(*[t.data_ptr() if t is not None else None for _, t in tensors],
+                 b, s, heads, c3 // 3 // heads, int(qkv.dtype == torch.bfloat16),
+                 float(scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"packed_attention_forward refused or failed at launch: "
+        raise RuntimeError(f"{entry} refused or failed at launch: "
                            f"{_REFUSALS.get(err, f'CUDA error {err}')} "
                            f"(qkv {tuple(qkv.shape)} {qkv.dtype}, heads {heads})")
+
+
+def _launch(qkv: torch.Tensor, bias: Optional[torch.Tensor], scale: float,
+            heads: int) -> torch.Tensor:
+    bias = _kernel_args(qkv, bias, heads)
+    b, s, c3 = qkv.shape
+    out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    _call("packed_attention_forward", "packed_attention",
+          (("qkv", qkv), ("bias", bias), ("out", out)), qkv, scale, heads)
     mha_packed_bias.launches += 1
     return out
+
+
+def _launch_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor], dout: torch.Tensor,
+                scale: float, heads: int) -> torch.Tensor:
+    bias = _kernel_args(qkv, bias, heads)
+    b, s, c3 = qkv.shape
+    if dout.shape != (b, s, c3 // 3) or dout.dtype != qkv.dtype or dout.device != qkv.device:
+        raise ValueError(f"dout must be {(b, s, c3 // 3)} {qkv.dtype} on {qkv.device}, got "
+                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    dout = dout.contiguous()
+    dqkv = torch.empty_like(qkv)
+    # per-row log-sum-exp and rowsum(dP * P): the first kernel's notes to the second
+    lse = torch.empty((b, heads, s), dtype=torch.float32, device=qkv.device)
+    delta = torch.empty_like(lse)
+    _call("packed_attention_backward", "packed_attention_bwd",
+          (("qkv", qkv), ("bias", bias), ("dout", dout), ("dqkv", dqkv), ("lse", lse),
+           ("delta", delta)), qkv, scale, heads)
+    mha_packed_bias_bwd.launches += 1
+    return dqkv
+
+
+def mha_packed_bias_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor], dout: torch.Tensor,
+                        scale: float, heads: int) -> torch.Tensor:
+    """``dqkv`` (B, S, 3C) from ``dout`` (B, S, C): the backward of
+    :func:`mha_packed_bias` with respect to qkv (the bias' cotangent is
+    ``dqkv`` summed over B and S).
+
+    ``mha_packed_bias_bwd.launches`` counts kernel launches (and nothing else)."""
+    _check(qkv, bias, heads)
+    if qkv.device.type == "cpu":
+        return mha_packed_bias_bwd_plain(qkv, bias, dout, scale, heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    return _launch_bwd(qkv, bias, dout, scale, heads)
+
+
+mha_packed_bias_bwd.launches = 0
+
+
+def _forward(qkv: torch.Tensor, bias: Optional[torch.Tensor], scale: float,
+             heads: int) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        return mha_packed_bias_plain(qkv, bias, scale, heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    return _launch(qkv, bias, scale, heads)
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Forward and backward kernels under one differentiable call; saves the
+    two inputs only."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, scale, heads):
+        ctx.save_for_backward(qkv, bias)
+        ctx.scale, ctx.heads = scale, heads
+        return _forward(qkv, bias, scale, heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias = ctx.saved_tensors
+        dqkv = mha_packed_bias_bwd(qkv, bias, dout, ctx.scale, ctx.heads)
+        dbias = None
+        if bias is not None and ctx.needs_input_grad[1]:
+            dbias = dqkv.float().sum((0, 1)).to(bias.dtype)
+        return dqkv, dbias, None, None
 
 
 def mha_packed_bias(qkv: torch.Tensor, bias: Optional[torch.Tensor], scale: float,
                     heads: int) -> torch.Tensor:
     """Fused attention on the raw UNBIASED qkv projection (B, S, 3C) plus its
     bias (3C,) (or None) -> (B, S, C). The bias add happens inside the kernel.
+    Differentiable with respect to qkv and bias.
 
-    ``mha_packed_bias.launches`` counts kernel launches (and nothing else)."""
+    ``mha_packed_bias.launches`` counts launches of the forward kernel (and
+    nothing else)."""
     _check(qkv, bias, heads)
-    if qkv.device.type == "cpu":
-        return mha_packed_bias_plain(qkv, bias, scale, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
-    return _launch(qkv, bias, scale, heads)
+    return _PackedAttention.apply(qkv, bias, scale, heads)
 
 
 mha_packed_bias.launches = 0

@@ -5,6 +5,9 @@ applied over H and W, so the coordinate mapping is stated here and does not
 depend on the installed ``F.interpolate``.
 
 Semantics parity:
+  * :func:`resize_bilinear` — half-pixel centers with edge clamp; matches
+    ``cv2.resize(INTER_LINEAR)`` and ``F.interpolate(mode='bilinear',
+    align_corners=False)`` (no antialiasing, like both).
   * :func:`resize_bicubic` — cubic kernel with a=-0.75 (torch/OpenCV
     convention), half-pixel centers, edge clamp; matches
     ``F.interpolate(mode='bicubic', align_corners=False)``. The optional
@@ -36,9 +39,9 @@ def _cubic_weight(x: np.ndarray, a: float = -0.75) -> np.ndarray:
 
 
 @lru_cache(maxsize=256)
-def _resize_matrix(in_size: int, out_size: int,
+def _resize_matrix(in_size: int, out_size: int, method: str,
                    scale: Optional[float] = None) -> np.ndarray:
-    """(out_size, in_size) row-stochastic bicubic interpolation matrix."""
+    """(out_size, in_size) row-stochastic interpolation matrix."""
     if scale is None:
         scale = out_size / in_size
     # half-pixel (align_corners=False) source coordinates
@@ -46,11 +49,36 @@ def _resize_matrix(in_size: int, out_size: int,
     mat = np.zeros((out_size, in_size), dtype=np.float64)
     i0 = np.floor(src).astype(np.int64)
     frac = src - i0
-    for tap in range(-1, 3):
-        w = _cubic_weight(frac - tap)
+    if method == "linear":
+        taps = ((0, 1.0 - frac), (1, frac))
+    elif method == "cubic":
+        taps = tuple((tap, _cubic_weight(frac - tap)) for tap in range(-1, 3))
+    else:
+        raise ValueError(f"unknown resize method {method!r}")
+    for tap, w in taps:
         kc = np.clip(i0 + tap, 0, in_size - 1)
         np.add.at(mat, (np.arange(out_size), kc), w)
     return mat.astype(np.float32)
+
+
+def _matrices(x: torch.Tensor, in_hw, out_hw, method: str, scale=(None, None)):
+    return [torch.as_tensor(_resize_matrix(i, o, method, sc), dtype=x.dtype, device=x.device)
+            for i, o, sc in zip(in_hw, out_hw, scale)]
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
+                    channel_last: bool = True) -> torch.Tensor:
+    """Bilinear resize, half-pixel centers, edge clamp, no antialias.
+
+    ``x``: (..., H, W, C) if channel_last else (..., H, W).
+    """
+    if channel_last:
+        mh, mw = _matrices(x, x.shape[-3:-1], out_hw, "linear")
+        y = torch.einsum("oh,...hwc->...owc", mh, x)
+        return torch.einsum("pw,...owc->...opc", mw, y)
+    mh, mw = _matrices(x, x.shape[-2:], out_hw, "linear")
+    y = torch.einsum("oh,...hw->...ow", mh, x)
+    return torch.einsum("pw,...ow->...op", mw, y)
 
 
 def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -61,12 +89,7 @@ def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int],
     ``scale``: optional (scale_h, scale_w) to use for the coordinate mapping
     (torch ``scale_factor`` semantics); defaults to out/in.
     """
-    in_h, in_w = x.shape[-3], x.shape[-2]
-    sh = float(scale[0]) if scale is not None else None
-    sw = float(scale[1]) if scale is not None else None
-    mh = torch.as_tensor(_resize_matrix(in_h, out_hw[0], sh),
-                         dtype=x.dtype, device=x.device)
-    mw = torch.as_tensor(_resize_matrix(in_w, out_hw[1], sw),
-                         dtype=x.dtype, device=x.device)
+    scale = (None, None) if scale is None else (float(scale[0]), float(scale[1]))
+    mh, mw = _matrices(x, x.shape[-3:-1], out_hw, "cubic", scale)
     y = torch.einsum("oh,...hwc->...owc", mh, x)
     return torch.einsum("pw,...owc->...opc", mw, y)

@@ -1,0 +1,120 @@
+"""The optimizer and the gradient-control utilities of the pretraining step.
+
+Counterpart of ``ccd_tpu/training/optim.py``. Parity targets in
+``Dino/modules/utils.py``: ``get_params_groups`` (biases and 1-D params not
+regularized, ``:643-654``), ``clip_gradients`` (PER-PARAMETER norm clipping,
+``:132-141``), ``cancel_gradients_last_layer`` (``:144-149``), and the
+in-place EMA teacher update (``train.py:263-272``).
+
+Parameters travel as ``{name: tensor}`` dictionaries in the order of
+``module.named_parameters()``. The AdamW here is written out as tensor
+functions that follow ``optax.adamw`` under ``inject_hyperparams``: the
+learning rate and the weight decay are new at every step, every parameter's
+moments and the shared count advance at every step whatever its gradient, and
+the caller may zero a parameter's whole update afterwards. (``torch.optim.AdamW``
+skips a parameter whose ``grad`` is None, moments and count included, which
+gives other numbers from the second step after the last layer is unfrozen.)
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+def weight_decay_mask(params: Params, norm_last_layer: bool = True) -> Dict[str, bool]:
+    """True = regularized. Mirrors get_params_groups: names ending in 'bias'
+    and rank<=1 params (LayerNorm scales, biases) get no weight decay.
+
+    ``last_layer.weight_g`` (the DINOHead weight-norm gain) is excluded only
+    when ``norm_last_layer``: the reference then freezes it with
+    ``requires_grad=False`` (vision_transformer.py:316-317), which drops it
+    from ``get_params_groups`` entirely. With ``norm_last_layer=False`` (the
+    shipped ViT-Small/Tiny configs) ``weight_g`` is a trainable ndim-2 param
+    that get_params_groups DOES regularize, so it is decayed here too."""
+    def keep(name: str, p: torch.Tensor) -> bool:
+        if name.endswith("last_layer.weight_g"):
+            return not norm_last_layer
+        return p.ndim > 1 and not name.endswith("bias")
+    return {name: keep(name, p) for name, p in params.items()}
+
+
+@dataclass
+class AdamWState:
+    """First and second moments, in the parameters' order, and the step count."""
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+    count: int = 0
+
+
+def adamw_init(params: Params) -> AdamWState:
+    return AdamWState([torch.zeros_like(p) for p in params.values()],
+                      [torch.zeros_like(p) for p in params.values()])
+
+
+def adamw_updates(grads: List[torch.Tensor], state: AdamWState, params: List[torch.Tensor],
+                  decay: List[bool], lr: float, weight_decay: float, b1: float = 0.9,
+                  b2: float = 0.999, eps: float = 1e-8) -> List[torch.Tensor]:
+    """One AdamW step as ``optax.adamw`` takes it: advances ``state`` in place
+    and returns the updates ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``
+    (``wd * p`` on the ``decay`` parameters only), to be added to ``params``
+    by the caller."""
+    torch._foreach_mul_(state.mu, b1)
+    torch._foreach_add_(state.mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(state.nu, b2)
+    torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
+    state.count += 1
+    c1 = 1.0 - b1 ** state.count
+    c2 = 1.0 - b2 ** state.count
+    denom = torch._foreach_div(state.nu, c2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    updates = torch._foreach_div(state.mu, c1)
+    torch._foreach_div_(updates, denom)
+    decayed = [i for i, d in enumerate(decay) if d]
+    if decayed and weight_decay != 0.0:
+        torch._foreach_add_([updates[i] for i in decayed], [params[i] for i in decayed],
+                            alpha=weight_decay)
+    torch._foreach_mul_(updates, -lr)
+    return updates
+
+
+def clip_gradients_per_param(grads: List[torch.Tensor], clip: Optional[float]
+                             ) -> List[torch.Tensor]:
+    """Per-parameter L2 norm clipping (clip_gradients, utils.py:132-141):
+    ``g * clip / (norm + 1e-6)`` where that coefficient is below 1. In place."""
+    if not clip:
+        return grads
+    norms = torch._foreach_norm(grads)
+    coefs = torch.stack(norms).float().add_(1e-6).reciprocal_().mul_(clip).clamp_max_(1.0)
+    torch._foreach_mul_(grads, list(coefs.unbind(0)))
+    return grads
+
+
+def cancel_last_layer_grads(names: List[str], grads: List[torch.Tensor], freeze: bool
+                            ) -> List[torch.Tensor]:
+    """Zero the DINO-head last-layer entries of ``grads`` while ``freeze``.
+
+    Matches cancel_gradients_last_layer: params whose name contains
+    'last_layer'. The reference sets ``p.grad = None`` which makes torch
+    AdamW skip the parameter COMPLETELY (no weight decay either) — so the
+    train step also applies this to the optimizer *updates*, not just the
+    gradients (see make_pretrain_step). In place."""
+    if freeze:
+        for name, g in zip(names, grads):
+            if "last_layer" in name:
+                g.zero_()
+    return grads
+
+
+@torch.no_grad()
+def ema_update(teacher: List[torch.Tensor], student: List[torch.Tensor], momentum: float
+               ) -> None:
+    """teacher = m * teacher + (1 - m) * student, in place (train.py:263-272)."""
+    torch._foreach_mul_(teacher, momentum)
+    torch._foreach_add_(teacher, student, alpha=1.0 - momentum)

@@ -4,14 +4,25 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA Hopper GPU, ``nvcc`` and nothing outside the repository.
-It builds the CUDA kernels of ``ccd_tpu_torch`` from their sources, holds
-each against its plain PyTorch version on the card, then drives the port's
-main path — the recognizer's evaluation (ViT-Small + 6-layer NRTR greedy
-decode, bf16, batch 288, the shipped ``ccd_finetune_ard.yaml``) over
-synthetic LMDBs through ``evaluate_benchmarks`` as the CLI calls it — and
-checks that the path went through the kernels and that its output agrees
-with a run whose attention is the plain version. Weights are random, from a
-seed. Every phase that fails ends the run with a non-zero exit code.
+It builds the CUDA kernels of ``ccd_tpu_torch`` from their sources (all
+``nvcc`` runs started together), holds each against its plain PyTorch version
+on the card, then drives the port's two main paths at the full width of the
+shipped configurations, with random weights from a seed:
+
+  * the recognizer's evaluation (ViT-Small + 6-layer NRTR greedy decode, bf16,
+    batch 288, ``ccd_finetune_ard.yaml``) over synthetic LMDBs through
+    ``evaluate_benchmarks`` as the CLI calls it;
+  * the pretraining step (student/teacher ViT-Small, SegHead, glyph clusters,
+    char pooling, 65536-wide DINO head, both losses, backward, AdamW, EMA;
+    bf16, batch 64, ``ccd_pretrain_vit_small.yaml``) through
+    ``build_pretrain_models`` / ``init_pretrain_state`` / ``make_pretrain_step``
+    on rendered words and their masks, first with ground-truth masks, then
+    with self-predicted ones.
+
+It checks that each path went through the kernels (launch counts set to 0
+just before a path and read just after) and that its output agrees with a
+run in which the script puts the plain versions in the kernels' place. Every
+phase that fails ends the run with a non-zero exit code.
 
 Prints one JSON object per phase, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -19,6 +30,8 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import shutil
@@ -33,14 +46,27 @@ import torch
 import torch.nn.functional as F
 
 import ccd_tpu_torch
-from ccd_tpu_torch.builders import build_recognizer
+import ccd_tpu_torch.losses.losses as losses_mod
+import ccd_tpu_torch.models.vit as vit_mod
+import ccd_tpu_torch.training.pretrain_step as pretrain_step_mod
+from ccd_tpu_torch.builders import build_pretrain_models, build_recognizer
 from ccd_tpu_torch.config import Config
 from ccd_tpu_torch.data.dataset import SupervisedDataset, build_dataset
 from ccd_tpu_torch.data.pipeline import DataLoader
-from ccd_tpu_torch.data.synthetic import write_synthetic_lmdb
+from ccd_tpu_torch.data.synthetic import make_synthetic_batch, write_synthetic_lmdb
 from ccd_tpu_torch.evaluation import runner
+from ccd_tpu_torch.losses import teacher_temp_schedule
 from ccd_tpu_torch.ops import _build
-from ccd_tpu_torch.ops.flash_attention import mha_packed_bias, mha_packed_bias_plain
+from ccd_tpu_torch.ops.cc_label import label_clusters
+from ccd_tpu_torch.ops.flash_attention import (mha_packed_bias, mha_packed_bias_bwd,
+                                               mha_packed_bias_bwd_plain,
+                                               mha_packed_bias_plain)
+from ccd_tpu_torch.ops.fused_dino_ce import fused_dino_row_ce, fused_dino_row_ce_plain
+from ccd_tpu_torch.ops.warp import affine_grid, grid_sample
+from ccd_tpu_torch.training.pretrain_step import (PretrainState, init_pretrain_state,
+                                                  make_pretrain_step)
+
+KERNEL_LIBRARIES = ("packed_attention", "packed_attention_bwd", "fused_dino_ce")
 
 # published peaks of one H100 SXM (dense): device memory and tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -52,11 +78,35 @@ BATCH = 288
 N_FULL, N_RAGGED = 1152, 100           # four full batches, and a ragged set
 PKG_DIR = os.path.dirname(os.path.abspath(ccd_tpu_torch.__file__))
 CONFIG = os.path.join(PKG_DIR, "configs", "ccd_finetune_ard.yaml")
+PRETRAIN_CONFIG = os.path.join(PKG_DIR, "configs", "ccd_pretrain_vit_small.yaml")
+PRETRAIN_BATCH = 64                    # -> 2B = 128 images of 256 tokens, 3328 rows of 65536
+GT_STEPS, PREDICTED_STEPS = 6, 3       # pretraining steps in the two mask regimes
+LAUNCHES_PER_STEP = {"K1-fwd": 24, "K1-bwd": 12, "K2-fwd": 1, "K2-bwd": 1}
+STEP_PHASES = ("student_encode", "segment", "label_clusters", "warp", "teacher_encode",
+               "pool_head", "seg_loss", "dino_ce", "backward", "update")
 
 # |kernel - plain| on O(1) outputs. bf16: both round p and the output to bf16
 # (ulp 2^-8 relative, 2^-7 absolute just below 2), at different points of the
 # softmax normalisation. fp32: same products, summed in another order.
+# The backward's outputs are O(1) to O(4) and rounded once more (dS, P) than the
+# forward's, at the same places in kernel and plain version: the same limits.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# dbias sums dqkv over B*S rows; kernel and plain dqkv differ by roundings of
+# either sign, so the sums are compared relative to the largest entry.
+TOL_DBIAS_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# Fused CE, |kernel - plain| <= rtol * |plain| + atol per row. ce is a
+# difference of two O(10) terms; with bf16 logits both sides read the same
+# rounded inputs, so what differs is fp32 summation order and the fast
+# exponential (2 ulp). ds is compared relative to its largest entry: bf16
+# rounds it to 2^-9 relative, fp32 differs by summation order in the row sums.
+TOL_CE = {torch.bfloat16: (1e-3, 1e-3), torch.float32: (1e-5, 1e-4)}
+TOL_DS_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# Pretraining step, kernels against plain versions, bf16, same state and
+# drop-path draws: the losses are O(1) to O(10) means over thousands of rows
+# whose logits differ by bf16 roundings of either sign; the first moments
+# (0.1 x the clipped gradients) pass through 12 bf16 blocks backwards.
+TOL_STEP_LOSS_REL = 1e-2
+TOL_STEP_GRAD_REL = 0.15
 # End to end, kernel run against plain-attention run, bf16, random weights:
 # per-step probabilities (each <= 1, mostly ~1/92) compared up to the first
 # step where the two runs' greedy tokens part (after it their inputs differ).
@@ -138,6 +188,159 @@ def check_attention(shape, dtype, with_bias, gen):
     }
 
 
+def attention_bwd_bound(b, s, c, h, dtype, with_bias):
+    """Backward: qkv and dO read once, dqkv written once; five products of
+    2*S*S*D flop per head and batch row."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * b * s * 3 * c + b * s * c + (3 * c if with_bias else 0)) * elem
+    flops = 10 * s * s * (c // h) * h * b
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_attention_bwd(shape, dtype, with_bias, gen):
+    """Backward kernel against its plain version (dqkv, and dbias through the
+    autograd function), and the library's attention backward as a yardstick."""
+    b, s, c, h = shape
+    qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dtype)
+    bias = (0.5 * torch.randn(3 * c, device="cuda", generator=gen)).to(dtype) if with_bias else None
+    dout = torch.randn(b, s, c, device="cuda", generator=gen).to(dtype)
+    scale = (c // h) ** -0.5
+    dqkv = mha_packed_bias_bwd(qkv, bias, dout, scale, h)
+    torch.cuda.synchronize()
+    ref = mha_packed_bias_bwd_plain(qkv, bias, dout, scale, h)
+    err = float((dqkv.float() - ref.float()).abs().max())
+    what = f"packed attention backward {shape} {dtype} bias={with_bias}"
+    if dqkv.shape != qkv.shape or dqkv.dtype != dtype or not bool(torch.isfinite(dqkv).all()):
+        raise SystemExit(f"{what}: bad output")
+    if not err <= TOL[dtype]:
+        raise SystemExit(f"{what}: max |kernel - plain| = {err} > {TOL[dtype]}")
+    dbias_rel = None
+    if with_bias:
+        q, bb = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        mha_packed_bias(q, bb, scale, h).backward(dout)
+        want = ref.float().sum((0, 1))
+        dbias_rel = float((bb.grad.float() - want).abs().max() / want.abs().max())
+        if not float((q.grad.float() - dqkv.float()).abs().max()) == 0.0:
+            raise SystemExit(f"{what}: the autograd function's dqkv is not the kernel's")
+        if not dbias_rel <= TOL_DBIAS_REL[dtype]:
+            raise SystemExit(f"{what}: dbias off by {dbias_rel} of its largest entry "
+                             f"> {TOL_DBIAS_REL[dtype]}")
+    biased = qkv if bias is None else qkv + bias
+    lq, lk, lv = (x.detach().requires_grad_()
+                  for x in biased.view(b, s, 3, h, c // h).permute(2, 0, 3, 1, 4))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+    ldo = dout.view(b, s, h, c // h).permute(0, 2, 1, 3)
+    heavy = b * s * c > 1 << 24
+    bound_ms, bound_by = attention_bwd_bound(b, s, c, h, dtype, with_bias)
+    return {
+        "shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
+        "max_abs_err": err, "tol": TOL[dtype], "dbias_rel_err": dbias_rel,
+        "tol_dbias_rel": TOL_DBIAS_REL[dtype],
+        "kernel_ms": time_ms(lambda: mha_packed_bias_bwd(qkv, bias, dout, scale, h)),
+        "plain_ms": time_ms(lambda: mha_packed_bias_bwd_plain(qkv, bias, dout, scale, h),
+                            reps=3 if heavy else 10, warmup=1),
+        # the library's backward alone, on a graph built once over ready-made
+        # q, k, v; used nowhere in the port
+        "library_ms": time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                                          retain_graph=True)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def fused_ce_bounds(r, k, dtype):
+    """Forward: s and t read once (and the centre, and the per-row outputs);
+    backward: both read again, ds written. About a dozen fp32 operations per
+    logit pair either way, against the fp32 rate outside the tensor cores."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    fwd_bytes = 2 * r * k * elem + 4 * k + 4 * r * 6
+    bwd_bytes = 3 * r * k * elem + 4 * k + 4 * r * 6
+    out = []
+    for nbytes, flops in ((fwd_bytes, 12 * r * k), (bwd_bytes, 10 * r * k)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        out.append((max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_temp=0.1):
+    """Fused CE forward and backward kernels against the plain version."""
+    s = (0.5 * torch.randn(r, k, device="cuda", generator=gen)).to(dtype).requires_grad_()
+    t = (0.5 * torch.randn(r, k, device="cuda", generator=gen)).to(dtype)
+    c = 0.1 * torch.randn(1, k, device="cuda", generator=gen)
+    g = torch.randn(r, device="cuda", generator=gen)
+    args = (c, teacher_temp, student_temp, swap_halves)
+    ce = fused_dino_row_ce(s, t, *args)
+    (ds,) = torch.autograd.grad(ce, s, g, retain_graph=True)
+    torch.cuda.synchronize()
+    ref = fused_dino_row_ce_plain(s, t, *args)
+    (ds_ref,) = torch.autograd.grad(ref, s, g, retain_graph=True)
+    what = f"fused CE ({r}, {k}) {dtype} swap_halves={swap_halves}"
+    if ce.shape != (r,) or ce.dtype != torch.float32 or ds.dtype != dtype \
+            or not bool(torch.isfinite(ce).all()) or not bool(torch.isfinite(ds).all()):
+        raise SystemExit(f"{what}: bad output")
+    rtol, atol = TOL_CE[dtype]
+    ce_err = (ce - ref).abs().detach()
+    if not bool((ce_err <= rtol * ref.abs() + atol).all()):
+        raise SystemExit(f"{what}: ce off by {float(ce_err.max())} (rtol {rtol}, atol {atol})")
+    ds_err = float((ds.float() - ds_ref.float()).abs().max())
+    ds_rel = ds_err / float(ds_ref.float().abs().max())
+    if not ds_rel <= TOL_DS_REL[dtype]:
+        raise SystemExit(f"{what}: ds off by {ds_rel} of its largest entry > {TOL_DS_REL[dtype]}")
+    heavy = r * k > 1 << 24
+    reps = dict(reps=3, warmup=1) if heavy else {}
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = fused_ce_bounds(r, k, dtype)
+    common = {"shape": [r, k], "dtype": str(dtype).replace("torch.", ""),
+              "swap_halves": swap_halves, "library_ms": None}
+    sd = s.detach()
+    fwd = dict(common, max_abs_err=float(ce_err.max()), tol={"rtol": rtol, "atol": atol},
+               kernel_ms=time_ms(lambda: fused_dino_row_ce(sd, t, *args)),
+               plain_ms=time_ms(lambda: fused_dino_row_ce_plain(sd, t, *args), **reps),
+               bound_ms=fwd_bound, bound_by=fwd_by)
+    bwd = dict(common, max_abs_err=ds_err, rel_err=ds_rel, tol_rel=TOL_DS_REL[dtype],
+               kernel_ms=time_ms(lambda: torch.autograd.grad(ce, s, g, retain_graph=True)),
+               plain_ms=time_ms(lambda: torch.autograd.grad(ref, s, g, retain_graph=True),
+                                **reps),
+               bound_ms=bwd_bound, bound_by=bwd_by)
+    return fwd, bwd
+
+
+def unported_kernel_bounds(batch: int):
+    """Bounds of the TPU kernels still to port, from the shapes their paths
+    would give them (no kernel to time yet). K1b: the packed kernels' work on
+    folded (B*H, S, D) q, k, v. K3: the bilateral filter of the augmentation,
+    81 taps a pixel at about 20 fp32 operations a tap (L1 colour distance over
+    3 channels, two exponent arguments, one exp, 4 multiply-adds into
+    numerator and denominator), one fp32 image in and one out."""
+    shape = (2 * batch, 256, 384, 6)
+    k1b_fwd = attention_bound(*shape, torch.bfloat16, False)
+    k1b_bwd = attention_bwd_bound(*shape, torch.bfloat16, False)
+    pixels = batch * 32 * 128
+    t_ops = pixels * 81 * 20 / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = 2 * pixels * 3 * 4 / HBM_BYTES_PER_S * 1e3
+    return {"K1b-fwd": {"shape": [shape[0] * 6, 256, 64], "dtype": "bfloat16",
+                        "bound_ms": k1b_fwd[0], "bound_by": k1b_fwd[1]},
+            "K1b-bwd": {"shape": [shape[0] * 6, 256, 64], "dtype": "bfloat16",
+                        "bound_ms": k1b_bwd[0], "bound_by": k1b_bwd[1]},
+            "K3": {"shape": [batch, 32, 128, 3], "dtype": "float32",
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}}
+
+
+def count_refusals(what, calls, expected=(ValueError, TypeError, RuntimeError)):
+    """What a kernel does not take is refused, not computed some other way."""
+    refused = 0
+    for call in calls:
+        try:
+            call()
+        except expected:
+            refused += 1
+    if refused != len(calls):
+        raise SystemExit(f"{what}: {refused} of {len(calls)} unsupported inputs were refused")
+    return refused
+
+
 def normalise(images: torch.Tensor) -> torch.Tensor:
     x = images.float() / 255.0
     mean = torch.tensor(runner.IMAGENET_MEAN, device=x.device)
@@ -161,7 +364,8 @@ def decode_with_plain_attention(model, images: torch.Tensor) -> torch.Tensor:
 
 def device_busy(fn):
     """(wall ms, summed device-kernel ms, top kernels) of one call under
-    torch.profiler; the kernel sum is None when the trace holds no device time."""
+    torch.profiler; the kernel sum is None when the trace holds no device
+    time. Named ranges (the step's phases) are not kernels and are left out."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -173,6 +377,8 @@ def device_busy(fn):
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) is not None and "CUDA" not in str(ev.device_type):
             continue
+        if getattr(ev, "is_user_annotation", False) or ev.key in STEP_PHASES:
+            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -181,51 +387,13 @@ def device_busy(fn):
     if not rows:
         return wall_ms, None, []
     rows.sort(reverse=True)
-    top = [{"kernel": k[:60], "ms": ms, "calls": n} for ms, n, k in rows[:6]]
+    top = [{"kernel": k[:60], "ms": ms, "calls": n} for ms, n, k in rows[:8]]
     return wall_ms, sum(r[0] for r in rows), top
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script needs a GPU")
-    card = smi()
-    nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True, text=True,
-                          check=True).stdout
-    release = next((ln.strip() for ln in nvcc.splitlines() if "release" in ln), "unknown")
-    for mod in ("yaml", "PIL", "cv2"):
-        __import__(mod)  # the data stack; a missing module fails here
-    emit({"phase": "environment", "gpu": card, "python": sys.version.split()[0],
-          "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": release})
-    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products stay fp32
-    torch.backends.cudnn.allow_tf32 = False
-
-    t0 = time.time()
-    lib = _build.build_library("packed_attention")
-    _build.load_library("packed_attention")
-    emit({"phase": "build", "library": os.path.relpath(lib, os.path.dirname(PKG_DIR)),
-          "seconds": time.time() - t0})
-
-    # ---- every kernel against its plain version, at the main path's shapes
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main_shape = (BATCH, 256, 384, 6)
-    variants = [check_attention(main_shape, torch.bfloat16, True, gen),
-                check_attention(main_shape, torch.float32, True, gen),
-                check_attention((4, 256, 64, 2), torch.bfloat16, True, gen),
-                check_attention((4, 256, 64, 2), torch.float32, True, gen),
-                check_attention(main_shape, torch.bfloat16, False, gen)]
-    # what the kernel does not take is refused, not computed some other way
-    refused = 0
-    for shape in [(1, 100, 3 * 64), (1, 64, 3 * 48), (1, 4096, 3 * 64)]:  # S, D, shared memory
-        try:
-            mha_packed_bias(torch.zeros(shape, device="cuda", dtype=torch.bfloat16), None, 1.0, 1)
-        except (ValueError, RuntimeError):
-            refused += 1
-    if refused != 3:
-        raise SystemExit(f"packed attention: {refused} of 3 unsupported shapes were refused")
-    emit({"phase": "kernel_checks", "gpu": card, "refused_unsupported": refused,
-          "checks": variants})
-
-    # ---- the main path at full width
+def evaluation_path(card: str) -> int:
+    """The recognizer's evaluation at full width; returns the forward
+    kernel's launches on it."""
     config = Config(CONFIG)
     model, _ = build_recognizer(config, device="cuda",
                                 generator=torch.Generator().manual_seed(SEED))
@@ -319,7 +487,7 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    emit({"phase": "main_path", "gpu": card, "config": "ccd_finetune_ard.yaml",
+    emit({"phase": "main_path", "path": "evaluation", "gpu": card, "config": "ccd_finetune_ard.yaml",
           "arch": "vit_small + 6-layer NRTR", "dtype": "bfloat16", "batch": BATCH,
           "images": N_FULL + N_RAGGED, "batches": n_batches, "kernel_launches": launches,
           "images_per_s_inference": (N_FULL + N_RAGGED) / infer_s,
@@ -328,16 +496,336 @@ def main() -> None:
           "token_agreement_vs_plain": share, "min_token_agreement": MIN_TOKEN_AGREEMENT,
           "total_accuracy": weighted})
 
-    head = variants[0]
-    emit({"kernels": [{
-        "name": "K1-fwd packed_attention_forward (mha_packed_bias)", "route": "cuda",
-        "source": "ccd_tpu_torch/csrc/packed_attention.cu",
-        "replaces": "ccd_tpu/ops/flash_attention.py:217",
-        "launches": launches, "max_abs_err": head["max_abs_err"], "tol": head["tol"],
-        "shape": head["shape"], "dtype": head["dtype"],
-        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "variants": variants}]})
+    return launches
+
+
+class PlainAttention(torch.autograd.Function):
+    """The attention kernels' plain versions under one differentiable call."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, scale, heads):
+        ctx.save_for_backward(qkv, bias)
+        ctx.scale, ctx.heads = scale, heads
+        return mha_packed_bias_plain(qkv, bias, scale, heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias = ctx.saved_tensors
+        dqkv = mha_packed_bias_bwd_plain(qkv, bias, dout, ctx.scale, ctx.heads)
+        dbias = None if bias is None else dqkv.float().sum((0, 1)).to(bias.dtype)
+        return dqkv, dbias, None, None
+
+
+@contextlib.contextmanager
+def plain_versions_in_place_of_kernels():
+    """Inside, the ViT's attention and the fused CE of the package go through
+    their plain versions: done here by the script, the package has no switch."""
+    saved = (vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce)
+    vit_mod.mha_packed_bias = PlainAttention.apply
+    losses_mod.fused_dino_row_ce = fused_dino_row_ce_plain
+    try:
+        yield
+    finally:
+        vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce = saved
+
+
+class PhaseEvents:
+    """Stands in for the step's phase marker: CUDA events around each phase."""
+    records = []
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        PhaseEvents.records.append((self.name, self.start, end))
+        return False
+
+
+def kernel_counts():
+    return {"K1-fwd": mha_packed_bias.launches, "K1-bwd": mha_packed_bias_bwd.launches,
+            "K2-fwd": fused_dino_row_ce.launches, "K2-bwd": fused_dino_row_ce.bwd_launches}
+
+
+def reset_kernel_counts() -> None:
+    mha_packed_bias.launches = mha_packed_bias_bwd.launches = 0
+    fused_dino_row_ce.launches = fused_dino_row_ce.bwd_launches = 0
+
+
+def pretrain_batch(batch: int, seed: int):
+    """Rendered words and their glyph masks as the step's inputs: three views
+    (the image; a photometric variant; a variant warped by a small affine
+    theta through the port's own sampler) — the augmentation pipeline is not
+    ported yet, so the draws are made here with numpy."""
+    images, masks, _words = make_synthetic_batch(batch, seed=seed)
+    rng = np.random.default_rng(seed)
+    x = normalise(torch.from_numpy(images).cuda())                      # (B, H, W, 3)
+    h, w = x.shape[1:3]
+
+    def photometric():
+        gain = torch.from_numpy(rng.uniform(0.8, 1.2, (batch, 1, 1, 1)).astype(np.float32))
+        shift = torch.from_numpy(rng.uniform(-0.2, 0.2, (batch, 1, 1, 1)).astype(np.float32))
+        noise = torch.from_numpy(rng.normal(0, 0.05, tuple(x.shape)).astype(np.float32))
+        return x * gain.cuda() + shift.cuda() + noise.cuda()
+
+    angle = rng.uniform(-0.08, 0.08, batch)
+    zoom = rng.uniform(0.94, 1.06, batch)
+    theta = np.tile(np.eye(3, dtype=np.float32), (batch, 1, 1))
+    theta[:, 0, 0] = theta[:, 1, 1] = zoom * np.cos(angle)
+    theta[:, 0, 1], theta[:, 1, 0] = -zoom * np.sin(angle) * h / w, zoom * np.sin(angle) * w / h
+    theta[:, 0, 2] = rng.uniform(-0.06, 0.06, batch)
+    theta[:, 1, 2] = rng.uniform(-0.04, 0.04, batch)
+    theta = torch.from_numpy(theta).cuda()
+    view2 = grid_sample(photometric(), affine_grid(theta[:, :2], (h, w)))
+    views = torch.stack([x, photometric(), view2], dim=1)               # (B, 3, H, W, 3)
+    return views, torch.from_numpy(masks).cuda(), theta
+
+
+def pretrain_path(card: str) -> dict:
+    """The pretraining step at full width; returns the kernels' launches on it."""
+    config = Config(PRETRAIN_CONFIG)
+    student, teacher = build_pretrain_models(config, device="cuda",
+                                             generator=torch.Generator().manual_seed(SEED))
+    state = init_pretrain_state(student, teacher, seed=SEED)
+    if student.dtype != torch.bfloat16 or len(student.backbone.blocks) != 12 \
+            or student.backbone.embed_dim != 384 or student.out_dim != 65536 \
+            or tuple(student.head.last_layer.weight_v.shape) != (65536, 256) \
+            or int(config.batch_size_per_gpu) != PRETRAIN_BATCH:
+        raise SystemExit("pretrain path: not the full-width bf16 ViT-Small configuration")
+    views, masks, theta = pretrain_batch(PRETRAIN_BATCH, seed=321)
+    # the shipped schedule, except its length: warm-up and cosine are cut to
+    # this run's few steps so that the learning rate is not ~0 throughout
+    schedule = dict(
+        base_lr=float(config.lr) * PRETRAIN_BATCH / 256.0, min_lr=float(config.min_lr),
+        total_iters=1000, warmup_iters=3, weight_decay=float(config.weight_decay),
+        weight_decay_end=float(config.weight_decay_end),
+        momentum_teacher=float(config.momentum_teacher),
+        teacher_temps=teacher_temp_schedule(
+            float(config.warmup_teacher_temp), float(config.teacher_temp),
+            int(config.warmup_teacher_temp_epochs), 2),
+        clip_grad=config.clip_grad, freeze_last_layer=int(config.freeze_last_layer),
+        global_batch=PRETRAIN_BATCH, imgnet_based=int(config.imgnet_based))
+    step_gt = make_pretrain_step(gt_mask_epochs=30, **schedule)
+    step_predicted = make_pretrain_step(gt_mask_epochs=0, **schedule)
+
+    # the same state once more, for the same first step through the plain versions
+    twin = PretrainState(
+        student=copy.deepcopy(student), teacher=copy.deepcopy(teacher),
+        opt_state=copy.deepcopy(state.opt_state), center=state.center.clone(), iteration=0,
+        generator=torch.Generator(device="cuda"))
+    twin.generator.set_state(state.generator.get_state())
+    teacher0 = [p.detach().clone() for p in teacher.parameters()]
+
+    def run_step(step, st):
+        """One step, timed with CUDA events; the launches it made are checked."""
+        before = kernel_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        st, metrics = step(st, views, masks, theta)
+        b.record()
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in kernel_counts().items()}
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(metrics[k]) for k in ("loss", "mask_loss", "dino_loss")):
+            raise SystemExit(f"pretrain path: a loss is not finite: {metrics}")
+        return metrics, made, a.elapsed_time(b)
+
+    reset_kernel_counts()
+    history, step_ms = [], {"gt_masks": [], "predicted_masks": []}
+    first, made, _ = run_step(step_gt, state)
+    history.append(first)
+    if made != LAUNCHES_PER_STEP:
+        raise SystemExit(f"pretrain path: step launched {made}, expected {LAUNCHES_PER_STEP}")
+
+    # ---- the first step again from the same state, through the plain versions
+    counts = kernel_counts()
+    with plain_versions_in_place_of_kernels():
+        plain, made, _ = run_step(step_gt, twin)
+    if any(made.values()) or kernel_counts() != counts:
+        raise SystemExit(f"pretrain path: the plain-version step launched kernels: {made}")
+    loss_rel = {k: abs(first[k] - plain[k]) / abs(plain[k])
+                for k in ("loss", "mask_loss", "dino_loss")}
+    mu, mu_plain = (torch.cat([m.flatten() for m in st.opt_state.mu]) for st in (state, twin))
+    grad_rel = float((mu - mu_plain).norm() / mu_plain.norm())
+    center_rel = float((state.center - twin.center).norm() / twin.center.norm())
+    if not max(loss_rel.values()) <= TOL_STEP_LOSS_REL:
+        raise SystemExit(f"pretrain path: kernel and plain steps' losses differ: {loss_rel} "
+                         f"> {TOL_STEP_LOSS_REL}")
+    if not grad_rel <= TOL_STEP_GRAD_REL or not float(mu_plain.norm()) > 0:
+        raise SystemExit(f"pretrain path: kernel and plain steps' gradients differ by "
+                         f"{grad_rel} in L2 > {TOL_STEP_GRAD_REL}")
+    if not center_rel <= TOL_STEP_LOSS_REL:
+        raise SystemExit(f"pretrain path: kernel and plain steps' centres differ by {center_rel}")
+    grad_checksum = {"kernels": float(mu.abs().sum()), "plain": float(mu_plain.abs().sum())}
+    del twin, mu, mu_plain
+    torch.cuda.empty_cache()
+
+    # ---- more steps, both mask regimes
+    torch.cuda.reset_peak_memory_stats()
+    flood_rounds = []
+    for regime, step, n in (("gt_masks", step_gt, GT_STEPS - 1),
+                            ("predicted_masks", step_predicted, PREDICTED_STEPS)):
+        for _ in range(n):
+            metrics, made, ms = run_step(step, state)
+            if made != LAUNCHES_PER_STEP:
+                raise SystemExit(f"pretrain path: step launched {made}, expected "
+                                 f"{LAUNCHES_PER_STEP}")
+            history.append(dict(metrics, regime=regime))
+            step_ms[regime].append(ms)
+            flood_rounds.append(label_clusters.rounds)
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    # ---- where a step's time goes: CUDA events around the step's phases
+    PhaseEvents.records = []
+    marker = pretrain_step_mod._phase
+    pretrain_step_mod._phase = PhaseEvents
+    try:
+        _, made, phased_ms = run_step(step_gt, state)
+    finally:
+        pretrain_step_mod._phase = marker
+    phases = dict.fromkeys(STEP_PHASES, 0.0)
+    for name, a, b in PhaseEvents.records:
+        phases[name] += a.elapsed_time(b)
+    # ---- and how busy the card is during one step (the profiler slows the host side)
+    prof_wall, busy, top = device_busy(lambda: step_gt(state, views, masks, theta))
+    n_steps = GT_STEPS + PREDICTED_STEPS + 2
+    launches = kernel_counts()
+    if launches != {k: v * n_steps for k, v in LAUNCHES_PER_STEP.items()} \
+            or state.iteration != n_steps:
+        raise SystemExit(f"pretrain path: {launches} launches over {state.iteration} steps")
+
+    teacher_moved = max(float((p - p0).abs().max()) for p, p0 in
+                        zip(teacher.parameters(), teacher0))
+    center_moved = float(state.center.abs().max())
+    if not teacher_moved > 0 or not center_moved > 0:
+        raise SystemExit("pretrain path: the teacher or the centre did not move")
+    median_ms = statistics.median(step_ms["gt_masks"])
+    emit({"phase": "main_path", "path": "pretrain", "gpu": card,
+          "config": "ccd_pretrain_vit_small.yaml", "arch": "vit_small student + teacher",
+          "dtype": "bfloat16", "batch": PRETRAIN_BATCH, "out_dim": student.out_dim,
+          "logit_rows": 2 * PRETRAIN_BATCH * student.num_slots, "steps": n_steps,
+          "launches_per_step": LAUNCHES_PER_STEP, "kernel_launches": launches,
+          "step_ms_median": median_ms, "images_per_s": PRETRAIN_BATCH / median_ms * 1e3,
+          "step_ms": step_ms,
+          "step_ms_median_predicted_masks": statistics.median(step_ms["predicted_masks"]),
+          "label_clusters_flood_rounds": flood_rounds,
+          "phases_ms": phases, "phased_step_ms": phased_ms,
+          "peak_device_memory_bytes": peak_bytes,
+          "profiled_step_wall_ms": prof_wall, "profiled_device_busy_ms": busy,
+          "profiled_device_idle_share": None if busy is None else 1.0 - busy / prof_wall,
+          "profiled_top_kernels": top,
+          "first_step": first, "first_step_plain_versions": plain,
+          "first_step_loss_rel_diff": loss_rel, "tol_step_loss_rel": TOL_STEP_LOSS_REL,
+          "first_step_grad_rel_l2_diff": grad_rel, "tol_step_grad_rel": TOL_STEP_GRAD_REL,
+          "first_step_grad_checksum": grad_checksum, "first_step_center_rel_diff": center_rel,
+          "losses": history, "teacher_moved_max_abs": teacher_moved,
+          "center_max_abs": center_moved})
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, head, variants, **extra):
+    return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "max_abs_err": head["max_abs_err"],
+                 "tol": head.get("tol", head.get("tol_rel")), "shape": head["shape"],
+                 "dtype": head["dtype"], "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                 "library_ms": head["library_ms"], "variants": variants}, **extra)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script needs a GPU")
+    card = smi()
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True, text=True,
+                          check=True).stdout
+    release = next((ln.strip() for ln in nvcc.splitlines() if "release" in ln), "unknown")
+    for mod in ("yaml", "PIL", "cv2"):
+        __import__(mod)  # the data stack; a missing module fails here
+    emit({"phase": "environment", "gpu": card, "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": release})
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products stay fp32
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    libs = _build.build_libraries(KERNEL_LIBRARIES)  # one nvcc each, all started together
+    for name in KERNEL_LIBRARIES:
+        _build.load_library(name)
+    emit({"phase": "build",
+          "libraries": [os.path.relpath(lib, os.path.dirname(PKG_DIR)) for lib in libs],
+          "seconds": time.time() - t0})
+
+    # ---- every kernel against its plain version, at the main paths' shapes
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    eval_shape, train_shape, small = (BATCH, 256, 384, 6), (2 * PRETRAIN_BATCH, 256, 384, 6), \
+        (4, 256, 64, 2)
+    fwd = [check_attention(eval_shape, bf16, True, gen),
+           check_attention(train_shape, bf16, True, gen),
+           check_attention(eval_shape, f32, True, gen),
+           check_attention(small, bf16, True, gen),
+           check_attention(small, f32, True, gen),
+           check_attention(eval_shape, bf16, False, gen)]
+    bwd = [check_attention_bwd(shape, dtype, with_bias, gen)
+           for shape in (train_shape, small) for dtype in (bf16, f32)
+           for with_bias in (True, False)]
+    rows, width = 2 * PRETRAIN_BATCH * 26, 65536
+    ce = [check_fused_ce(rows, width, bf16, True, gen),
+          check_fused_ce(rows, width, f32, True, gen)]
+    ce += [check_fused_ce(2 * 7 * 26, k, dtype, swap, gen)   # K = 1001: the scalar path
+           for k in (1000, 1001) for dtype in (bf16, f32) for swap in (True, False)]
+    ce.append(check_fused_ce(7, 100, f32, False, gen))       # odd rows without swap_halves
+    ce_fwd, ce_bwd = [c[0] for c in ce], [c[1] for c in ce]
+
+    zeros = lambda *shape, dtype=bf16: torch.zeros(shape, device="cuda", dtype=dtype)
+    bad_attention = [(1, 100, 3 * 64), (1, 64, 3 * 48), (1, 4096, 3 * 64)]  # S, D, shared memory
+    refused = {
+        "K1-fwd": count_refusals("packed attention", [
+            (lambda sh=sh: mha_packed_bias(zeros(*sh), None, 1.0, 1)) for sh in bad_attention]),
+        "K1-bwd": count_refusals("packed attention backward", [
+            (lambda sh=sh: mha_packed_bias_bwd(zeros(*sh), None, zeros(sh[0], sh[1], sh[2] // 3),
+                                               1.0, 1)) for sh in bad_attention]),
+        "K2": count_refusals("fused CE", [
+            lambda: fused_dino_row_ce(zeros(4, 64), zeros(4, 64, dtype=f32), zeros(1, 64)),
+            lambda: fused_dino_row_ce(zeros(3, 64), zeros(3, 64), zeros(1, 64), swap_halves=True),
+            lambda: fused_dino_row_ce(zeros(4, 64, dtype=torch.float16),
+                                      zeros(4, 64, dtype=torch.float16), zeros(1, 64)),
+            lambda: fused_dino_row_ce(zeros(4, 64), zeros(4, 32), zeros(1, 64))])}
+    emit({"phase": "kernel_checks", "gpu": card, "refused_unsupported": refused,
+          "passed": {"K1-fwd": len(fwd), "K1-bwd": len(bwd), "K2-fwd": len(ce_fwd),
+                     "K2-bwd": len(ce_bwd)},  # each check's numbers: the kernels line
+          "bounds_of_kernels_still_to_port": unported_kernel_bounds(PRETRAIN_BATCH)})
+
+    # ---- the two main paths at full width, launch counts read around each
+    reset_kernel_counts()
+    eval_launches = evaluation_path(card)
+    reset_kernel_counts()
+    train_launches = pretrain_path(card)
+
+    emit({"kernels": [
+        kernel_entry("K1-fwd packed_attention_forward (mha_packed_bias)",
+                     "ccd_tpu_torch/csrc/packed_attention.cu",
+                     "ccd_tpu/ops/flash_attention.py:217",
+                     eval_launches + train_launches["K1-fwd"], fwd[0], fwd,
+                     launches_by_path={"evaluation": eval_launches,
+                                       "pretrain": train_launches["K1-fwd"]}),
+        kernel_entry("K1-bwd packed_attention_backward (mha_packed_bias_bwd)",
+                     "ccd_tpu_torch/csrc/packed_attention_bwd.cu",
+                     "ccd_tpu/ops/flash_attention.py:241", train_launches["K1-bwd"],
+                     bwd[0], bwd),
+        kernel_entry("K2-fwd fused_dino_ce_forward (fused_dino_row_ce)",
+                     "ccd_tpu_torch/csrc/fused_dino_ce.cu",
+                     "ccd_tpu/ops/fused_dino_ce.py:147", train_launches["K2-fwd"],
+                     ce_fwd[0], ce_fwd),
+        kernel_entry("K2-bwd fused_dino_ce_backward (fused_dino_row_ce, backward)",
+                     "ccd_tpu_torch/csrc/fused_dino_ce.cu",
+                     "ccd_tpu/ops/fused_dino_ce.py:215", train_launches["K2-bwd"],
+                     ce_bwd[0], ce_bwd)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

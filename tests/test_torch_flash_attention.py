@@ -1,8 +1,9 @@
-"""The port's packed attention (plain version, the CPU path of the wrapper)
-against the JAX package's Pallas kernel run in interpret mode.
+"""The port's packed attention (plain versions, the CPU path of the wrapper)
+against the JAX package's Pallas kernels run in interpret mode, forward and
+backward.
 
 Tolerance 2e-5 absolute on O(1) outputs in fp32: the two sides sum the same
-products in a different order.
+products in a different order. Gradients: 1e-4 (they sum over 256 rows).
 """
 
 import functools
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
@@ -19,6 +21,7 @@ import ccd_tpu.ops.flash_attention as fa
 from ccd_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 2e-5
+GRAD_ATOL = 1e-4
 SHAPES = [(2, 32, 3, 8), (2, 256, 2, 32)]  # (b, s, h, d)
 
 
@@ -59,6 +62,86 @@ def test_mha_packed_matches_pallas_zero_bias(interpret_mode, shape):
     zero = torch.zeros(3 * h * d)
     out_b = tfa.mha_packed_bias(torch.from_numpy(qkv), zero, scale, h)
     np.testing.assert_allclose(out_b.numpy(), out.numpy(), atol=1e-7)
+
+
+def _jax_grads(qkv, bias, w, scale, h):
+    """jax.grad of sum(out * w) through the interpreted Pallas kernels."""
+    loss = lambda a, b: jnp.sum(fa.mha_packed_bias(a, b, scale, h) * w)
+    dq, db = jax.grad(loss, argnums=(0, 1))(jnp.asarray(qkv), jnp.asarray(bias))
+    return np.asarray(dq), np.asarray(db)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gradient_flows_through_the_wrapper_and_matches_pallas(interpret_mode, shape):
+    """The wrapper on CPU tensors that require grad is differentiable (it was
+    forward-only once): dqkv and dbias of its autograd.Function equal
+    jax.grad of the Pallas kernel."""
+    b, s, h, d = shape
+    qkv, bias, scale = _inputs(b, s, h, d, 4)
+    w = np.random.default_rng(5).normal(size=(b, s, h * d)).astype(np.float32)
+    ref_dqkv, ref_dbias = _jax_grads(qkv, bias, w, scale, h)
+    tq = torch.from_numpy(qkv).requires_grad_()
+    tb = torch.from_numpy(bias).requires_grad_()
+    out = tfa.mha_packed_bias(tq, tb, scale, h)
+    assert out.requires_grad
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), ref_dqkv, atol=GRAD_ATOL)
+    np.testing.assert_allclose(tb.grad.numpy(), ref_dbias, atol=GRAD_ATOL * 10)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_pallas_and_autograd(interpret_mode, shape):
+    """The written-out backward equals jax.grad of the Pallas kernel and
+    autograd through the plain forward; dbias is its sum over B and S."""
+    b, s, h, d = shape
+    qkv, bias, scale = _inputs(b, s, h, d, 6)
+    w = np.random.default_rng(7).normal(size=(b, s, h * d)).astype(np.float32)
+    ref_dqkv, ref_dbias = _jax_grads(qkv, bias, w, scale, h)
+    dqkv = tfa.mha_packed_bias_bwd_plain(torch.from_numpy(qkv), torch.from_numpy(bias),
+                                         torch.from_numpy(w), scale, h)
+    np.testing.assert_allclose(dqkv.numpy(), ref_dqkv, atol=GRAD_ATOL)
+    np.testing.assert_allclose(dqkv.sum((0, 1)).numpy(), ref_dbias, atol=GRAD_ATOL * 10)
+    tq = torch.from_numpy(qkv).requires_grad_()
+    (tfa.mha_packed_bias_plain(tq, torch.from_numpy(bias), scale, h)
+     * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(dqkv.numpy(), tq.grad.numpy(), atol=GRAD_ATOL)
+    # the wrapper on a CPU tensor is the plain version
+    dq_w = tfa.mha_packed_bias_bwd(torch.from_numpy(qkv), torch.from_numpy(bias),
+                                   torch.from_numpy(w), scale, h)
+    np.testing.assert_array_equal(dq_w.numpy(), dqkv.numpy())
+
+
+def test_mha_packed_gradient_without_bias(interpret_mode):
+    """mha_packed (no bias) is differentiable too and matches the Pallas
+    kernel fed a zero bias."""
+    qkv, _, scale = _inputs(2, 64, 2, 32, 8)
+    w = np.random.default_rng(9).normal(size=(2, 64, 64)).astype(np.float32)
+    ref_dqkv, _ = _jax_grads(qkv, np.zeros(192, np.float32), w, scale, 2)
+    tq = torch.from_numpy(qkv).requires_grad_()
+    (tfa.mha_packed(tq, scale, 2) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), ref_dqkv, atol=GRAD_ATOL)
+
+
+def test_bf16_plain_backward_rounds_like_the_kernel():
+    """bf16 inputs: fp32 softmax and dP, dS rounded to bf16 before the dq and
+    dk products, P rounded before dv, fp32 accumulation, one rounding of the
+    result — spelled out here so the plain version cannot drift."""
+    qkv, bias, scale = _inputs(2, 64, 2, 32, 10)
+    do = np.random.default_rng(11).normal(size=(2, 64, 64)).astype(np.float32)
+    tq, tb, tdo = (torch.from_numpy(a).bfloat16() for a in (qkv, bias, do))
+    out = tfa.mha_packed_bias_bwd_plain(tq, tb, tdo, scale, 2)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 64, 192)
+    x = (tq + tb).float().view(2, 64, 3, 2, 32)
+    q, k, v = (x[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    g = tdo.float().view(2, 64, 2, 32).permute(0, 2, 1, 3)
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, -1)
+    dp = g @ v.transpose(-1, -2)
+    ds = ((p * (dp - (dp * p).sum(-1, keepdim=True))) * scale).bfloat16().float()
+    want = torch.stack([ds @ k, ds.transpose(-1, -2) @ q,
+                        p.bfloat16().float().transpose(-1, -2) @ g]).bfloat16()
+    want = want.permute(1, 3, 0, 2, 4).reshape(2, 64, 192)
+    # 1 bf16 ulp at O(4): the same fp32 sums may round across a tie differently
+    np.testing.assert_allclose(out.float().numpy(), want.float().numpy(), atol=2 ** -6)
 
 
 def test_bf16_plain_casts_probabilities_like_the_kernel():
@@ -107,5 +190,7 @@ def test_cpu_path_does_not_touch_the_build_machinery():
     qkv, bias, scale = _inputs(1, 64, 2, 32, 3)
     tfa.mha_packed_bias(torch.from_numpy(qkv), torch.from_numpy(bias), scale, 2)
     tfa.mha_packed(torch.from_numpy(qkv), scale, 2)
+    tfa.mha_packed(torch.from_numpy(qkv).requires_grad_(), scale, 2).sum().backward()
     assert "ccd_tpu_torch.ops._build" not in sys.modules
     assert tfa.mha_packed_bias.launches == before
+    assert tfa.mha_packed_bias_bwd.launches == 0

@@ -11,6 +11,11 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ccd_tpu_torch")
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "ccd_tpu")
+# every module that holds a kernel wrapper or a piece of the two ported paths
+MODULES = ("ops.flash_attention", "ops.fused_dino_ce", "ops.image", "ops.pooling", "ops.warp",
+           "ops.cc_label", "ops._build", "models.heads", "models.layers", "models.pretrain",
+           "models.vit", "losses.losses", "schedules", "training.optim",
+           "training.pretrain_step", "builders", "checkpoints.from_jax", "cli.evaluate")
 
 
 def _sources():
@@ -29,9 +34,9 @@ def test_fresh_interpreter_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(ccd_tpu_torch.__path__, 'ccd_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
-        "assert len(names) >= 25, names\n"
-        "assert 'ccd_tpu_torch.ops.flash_attention' in names\n"
-        "print('BAD', bad)\n" % (FORBIDDEN,))
+        "assert len(names) >= 36, names\n"
+        "for n in %r: assert 'ccd_tpu_torch.' + n in names, n\n"
+        "print('BAD', bad)\n" % (FORBIDDEN, MODULES))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -54,8 +59,16 @@ def test_source_has_no_forbidden_import(path):
 
 
 def test_port_does_not_call_library_attention():
-    """Nothing in the package stands in for the kernel: no fused library
-    attention and no torch.compile anywhere."""
+    """Nothing in the package stands in for a kernel: no fused library
+    attention and no torch.compile anywhere; the library's softmax and
+    cross-entropy stay out of the module that wraps the fused CE kernels,
+    except in its plain version."""
+    with open(os.path.join(PKG, "ops", "fused_dino_ce.py")) as f:
+        text = f.read()
+    plain = text[text.index("def fused_dino_row_ce_plain"):text.index("def _call")]
+    rest = text.replace(plain, "")
+    for word in ("torch.softmax", "torch.log_softmax", "cross_entropy", "logsumexp", "F."):
+        assert word not in rest, word
     for path in _sources():
         if path.endswith("chip_smoke.py"):
             continue  # times the library call once, as a yardstick only
@@ -80,6 +93,9 @@ def test_cuda_request_without_a_card_raises():
     cfg = Config(os.path.join(PKG, "configs", "smoke_finetune.yaml"))
     with pytest.raises(RuntimeError):
         build_recognizer(cfg)
+    from ccd_tpu_torch.builders import build_pretrain_models
+    with pytest.raises(RuntimeError):
+        build_pretrain_models(Config(os.path.join(PKG, "configs", "smoke_pretrain.yaml")))
     with pytest.raises(RuntimeError):
         from ccd_tpu_torch.cli.evaluate import main
         main(["-c", os.path.join(PKG, "configs", "smoke_finetune.yaml"), "--synthetic", "4"])
