@@ -138,6 +138,30 @@ class LmdbImageDataset:
         return cv2.resize(img, (self.img_w, self.img_h))
 
 
+class PretrainDataset(LmdbImageDataset):
+    """Self-supervised reader: (raw resized uint8 image, binary glyph mask).
+
+    The 3-view augmentation + theta happen on the device
+    (``augment.pretrain_views``); this host side only decodes, resizes, and
+    thresholds the mask to (img_h, img_w), mirroring
+    datasetsupervised_kmeans.py:82-86's resize+threshold without the CPU
+    imgaug work.
+    """
+
+    def __getitem__(self, idx: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        datum = self.get_raw(idx)
+        if datum is None:
+            return None
+        img, mask, _ = datum
+        image = self.resize(img)
+        if mask is None:
+            mask = np.zeros((self.img_h, self.img_w), np.float32)
+        else:
+            mask = cv2.resize(mask.astype(np.float32), (self.img_w, self.img_h))
+            mask = (mask >= 0.5).astype(np.float32)
+        return image, mask
+
+
 class SupervisedDataset(LmdbImageDataset):
     """Finetune/test reader: (resized uint8 image, padded target ids, text)."""
 

@@ -14,6 +14,7 @@ import threading
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def collate_filter_none(samples: Sequence) -> Optional[tuple]:
@@ -150,3 +151,68 @@ class DataLoader:
                         yield b
         finally:
             stop.set()
+
+
+def infinite_batches(loader: DataLoader) -> Iterator[tuple]:
+    """Endless epoch-cycling iterator (train_finetune.py:268-275 restart)."""
+    epoch = 0
+    while True:
+        loader.set_epoch(epoch)
+        yield from loader
+        epoch += 1
+
+
+def device_chunks(batches: Iterator[tuple], k_steps: int, stage: Callable,
+                  depth: int = 2) -> Iterator:
+    """Yield staged K-step chunks with ``depth`` chunks in flight.
+
+    ``stage(chunk: list[batch])`` runs in a background thread (stack, pin,
+    copy to the device), so host decoding and the host->device copy overlap
+    the device's work. Errors in the producer propagate to the consumer."""
+    out_q: "queue.Queue" = queue.Queue(maxsize=depth)
+
+    def producer():
+        while True:
+            try:
+                chunk = [next(batches) for _ in range(k_steps)]
+                out_q.put(("ok", stage(chunk)))
+            except BaseException as e:  # surface in the consumer thread
+                out_q.put(("err", e))
+                return
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        kind, item = out_q.get()
+        if kind == "err":
+            raise item
+        yield item
+
+
+def stage_pretrain_chunk(chunk: Sequence[tuple], device: torch.device,
+                         stream: Optional["torch.cuda.Stream"] = None):
+    """K (image, mask) batches -> ((K, B, H, W, 3) uint8, (K, B, H, W) uint8,
+    ready event) on ``device``. For a card: stacked on the host, pinned and
+    copied without blocking on ``stream``; the consumer makes its stream wait
+    on the returned event before it reads the tensors
+    (:func:`wait_for_chunk`). For the CPU the event is None."""
+    raws = torch.from_numpy(np.stack([c[0] for c in chunk]))
+    masks = torch.from_numpy(np.stack([c[1] for c in chunk]).astype(np.uint8))
+    if device.type != "cuda":
+        return raws.to(device), masks.to(device), None
+    with torch.cuda.stream(stream):
+        raws = raws.pin_memory().to(device, non_blocking=True)
+        masks = masks.pin_memory().to(device, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+    return raws, masks, ready
+
+
+def wait_for_chunk(raws: torch.Tensor, masks: torch.Tensor, ready) -> None:
+    """Order the current stream after a staged chunk's copies, and tell the
+    allocator that the current stream uses the chunk's memory."""
+    if ready is None:
+        return
+    current = torch.cuda.current_stream(raws.device)
+    current.wait_event(ready)
+    raws.record_stream(current)
+    masks.record_stream(current)

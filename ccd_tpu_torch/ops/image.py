@@ -8,6 +8,11 @@ Semantics parity:
   * :func:`resize_bilinear` — half-pixel centers with edge clamp; matches
     ``cv2.resize(INTER_LINEAR)`` and ``F.interpolate(mode='bilinear',
     align_corners=False)`` (no antialiasing, like both).
+  * :func:`jax_image_resize` — ``jax.image.resize`` (``"linear"``, ``"cubic"``
+    with Keys' a=-0.5, ``"nearest"``), ANTIALIASED when it downsamples: the
+    kernel is widened by in/out, so a 2x linear downsample averages four
+    input pixels, not two. The augmentation calls it where the JAX package
+    calls ``jax.image.resize``.
   * :func:`resize_bicubic` — cubic kernel with a=-0.75 (torch/OpenCV
     convention), half-pixel centers, edge clamp; matches
     ``F.interpolate(mode='bicubic', align_corners=False)``. The optional
@@ -25,6 +30,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ccd_tpu_torch.utils.device import device_constant
 
 
 def _cubic_weight(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -93,3 +100,71 @@ def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int],
     mh, mw = _matrices(x, x.shape[-3:-1], out_hw, "cubic", scale)
     y = torch.einsum("oh,...hwc->...owc", mh, x)
     return torch.einsum("pw,...owc->...opc", mw, y)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """``jax.image``'s cubic kernel (Keys, a=-0.5), for x >= 0."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out).astype(np.float32)
+
+
+def _jax_resize_taps(in_size: int, out_size: int, method: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(index, weight) arrays of shape (taps, out_size): output ``o`` is
+    ``sum_t weight[t, o] * input[index[t, o]]``. Built in float32 from
+    ``jax.image``'s weight matrix (antialias on, no translation): sample
+    position ``(o + 0.5) * in/out - 0.5``, kernel widened by ``max(in/out, 1)``,
+    columns normalised to sum 1, samples outside the input zeroed."""
+    if method == "nearest":
+        src = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) \
+            * np.float32(in_size) / np.float32(out_size)
+        return np.floor(src).astype(np.int64)[None], np.ones((1, out_size), np.float32)
+    kernels = {"linear": lambda x: np.maximum(0.0, 1.0 - x).astype(np.float32),
+               "cubic": _keys_cubic}
+    if method not in kernels:
+        raise ValueError(f"unknown resize method {method!r}")
+    inv_scale = np.float32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale \
+        - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    weights = kernels[method](x.astype(np.float32))                      # (in, out)
+    total = weights.sum(axis=0, keepdims=True, dtype=np.float32)
+    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                       weights / np.where(total != 0, total, 1), 0).astype(np.float32)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    weights = np.where(inside[None, :], weights, np.float32(0.0))
+    taps = max(int((weights != 0).sum(axis=0).max()), 1)
+    index = np.zeros((taps, out_size), np.int64)
+    weight = np.zeros((taps, out_size), np.float32)
+    for o in range(out_size):
+        nz = np.nonzero(weights[:, o])[0]
+        index[:len(nz), o] = nz
+        weight[:len(nz), o] = weights[nz, o]
+    return index, weight
+
+
+def _resize_axis(x: torch.Tensor, axis: int, out_size: int, method: str) -> torch.Tensor:
+    index, weight = device_constant(_jax_resize_taps, x.device, x.shape[axis], out_size, method)
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+    out = None
+    for idx, w in zip(index, weight):
+        term = x.index_select(axis, idx)
+        if method != "nearest":
+            term = term * w.to(x.dtype).reshape(shape)
+        out = term if out is None else out + term
+    return out
+
+
+def jax_image_resize(x: torch.Tensor, shape: Sequence[int], method: str) -> torch.Tensor:
+    """``jax.image.resize(x, shape, method)``: every axis whose size changes is
+    resampled, one after the other. Each output is a weighted sum of a few
+    gathered inputs (elementwise fp32 products, no matrix product), so no
+    TF32 path can round it."""
+    if len(shape) != x.ndim:
+        raise ValueError(f"shape {tuple(shape)} does not match rank {x.ndim}")
+    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in != n_out:
+            x = _resize_axis(x, axis, int(n_out), method)
+    return x

@@ -12,8 +12,11 @@ PyTorch runs it eagerly and in place: the state owns the two modules, the
 optimizer moments and the center, and ``step`` updates them where they are.
 Schedules are computed on the host from the Python iteration count, so the
 step itself reads nothing back from the device (``label_clusters`` reads one
-scalar per flood round). The three views and theta are inputs: the on-device
-augmentation is not ported yet. Single device.
+scalar per flood round). ``make_pretrain_step`` takes the three views and
+theta; ``make_fused_pretrain_step`` takes the raw uint8 images and masks and
+draws the views on the device (``data/augment.py::pretrain_views``) from the
+state's augmentation generator; ``make_multi_pretrain_step`` runs K fused
+steps over K stacked batches. Single device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function as _phase  # names the step's phases in a trace
 
+from ccd_tpu_torch.data.augment import pretrain_views
+from ccd_tpu_torch.data.random import TorchKey
 from ccd_tpu_torch.losses import (dino_char_loss, dino_char_loss_fused,
                                   dino_center_update, seg_loss)
 from ccd_tpu_torch.models.pretrain import CCDPretrainModel, char_validity_mask
@@ -47,6 +52,7 @@ class PretrainState:
     center: torch.Tensor             # (1, out_dim) fp32
     iteration: int
     generator: torch.Generator       # draws the student's drop-path masks
+    aug_generator: torch.Generator   # draws the fused step's augmentation
 
 
 def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
@@ -54,8 +60,8 @@ def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
     """Build the initial state around two built models: the teacher starts as
     a copy of the student's backbone+head (train.py:109-110), the optimizer
     moments (AdamW, the shipped configs' optimizer) and the center at zero.
-    The drop-path generator lives on the models' device and starts from
-    ``seed``."""
+    The drop-path generator and the augmentation generator live on the
+    models' device and start from ``seed`` and ``seed + 1``."""
     teacher.backbone.load_state_dict(student.backbone.state_dict())
     teacher.head.load_state_dict(student.head.state_dict())
     student.train()
@@ -65,19 +71,36 @@ def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
         student=student, teacher=teacher,
         opt_state=adamw_init(dict(student.named_parameters())),
         center=torch.zeros((1, student.out_dim), dtype=torch.float32, device=device),
-        iteration=0, generator=torch.Generator(device=device).manual_seed(seed))
+        iteration=0, generator=torch.Generator(device=device).manual_seed(seed),
+        aug_generator=torch.Generator(device=device).manual_seed(seed + 1))
 
 
 def pretrain_state_payload(state: PretrainState) -> dict:
     """Checkpoint payload mirroring the reference's
     {student, teacher, optimizer, epoch/iteration, dino_loss-center}
-    (train.py:197-207). The generator is intentionally excluded and re-seeded
-    on resume."""
+    (train.py:197-207). The generators are intentionally excluded and
+    re-seeded on resume, as the JAX package re-derives its key."""
     return {"student": state.student.state_dict(),
             "teacher": state.teacher.state_dict(),
             "opt_state": {"mu": state.opt_state.mu, "nu": state.opt_state.nu,
                           "count": state.opt_state.count},
             "center": state.center, "iteration": state.iteration}
+
+
+def restore_pretrain_state(state: PretrainState, payload: dict) -> PretrainState:
+    """Put a :func:`pretrain_state_payload` back into ``state``, in place:
+    both modules, the optimizer moments and count, the centre and the
+    iteration (tensors are copied onto the state's devices)."""
+    state.student.load_state_dict(payload["student"], strict=True)
+    state.teacher.load_state_dict(payload["teacher"], strict=True)
+    opt = payload["opt_state"]
+    with torch.no_grad():
+        for mine, saved in zip(state.opt_state.mu + state.opt_state.nu, opt["mu"] + opt["nu"]):
+            mine.copy_(saved)
+        state.center.copy_(payload["center"])
+    state.opt_state.count = int(opt["count"])
+    state.iteration = int(payload["iteration"])
+    return state
 
 
 def make_pretrain_step(
@@ -209,5 +232,48 @@ def make_pretrain_step(
         metrics = {"loss": loss.detach(), "mask_loss": l_seg.detach(),
                    "dino_loss": l_dino.detach(), "lr": lr, "wd": wd, "epoch": epoch}
         return state, metrics
+
+    return step
+
+
+def make_fused_pretrain_step(*, severity: int = 5, **kwargs
+                             ) -> Callable[..., Tuple[PretrainState, Dict[str, object]]]:
+    """The step on RAW images: ``step(state, raw, masks)`` with raw
+    (B, H, W, 3) uint8 (or float [0,1]) and masks (B, H, W) uint8 or float.
+    The conversion to float, the 3-view augmentation and theta run on the
+    device, with draws from ``state.aug_generator``, then the step of
+    :func:`make_pretrain_step` (built from ``kwargs``)."""
+    inner = make_pretrain_step(**kwargs)
+
+    def step(state: PretrainState, raw: torch.Tensor, masks: torch.Tensor):
+        # uint8 crosses from the host (4x fewer bytes than fp32) and is
+        # converted here, on the device
+        if raw.dtype == torch.uint8:
+            raw = raw.float() / 255.0
+        if masks.dtype != torch.float32:
+            masks = masks.float()
+        with _phase("augment"):
+            views, theta = pretrain_views(TorchKey(state.aug_generator), raw, severity=severity)
+        return inner(state, views, masks, theta)
+
+    return step
+
+
+def make_multi_pretrain_step(*, severity: int = 5, **kwargs
+                             ) -> Callable[..., Tuple[PretrainState, Dict[str, torch.Tensor]]]:
+    """K fused steps over K stacked batches: ``step(state, raws (K, B, H, W,
+    3), masks (K, B, H, W)) -> (state, metrics stacked along K)``, as the JAX
+    package's ``lax.scan``. The losses stay on the device; the host-side
+    schedule values are stacked on the CPU."""
+    inner = make_fused_pretrain_step(severity=severity, **kwargs)
+
+    def step(state: PretrainState, raws: torch.Tensor, masks: torch.Tensor):
+        history = []
+        for raw, mask in zip(raws, masks):
+            state, metrics = inner(state, raw, mask)
+            history.append(metrics)
+        stacked = {k: torch.stack([m[k] for m in history]) if torch.is_tensor(history[0][k])
+                   else torch.tensor([m[k] for m in history]) for k in history[0]}
+        return state, stacked
 
     return step

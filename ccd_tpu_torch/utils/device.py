@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Union
+from functools import lru_cache
+from typing import Callable, Union
 
 import torch
 
@@ -17,3 +18,15 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             f"device {str(device)!r} was requested but torch.cuda.is_available() "
             "is False; pass device='cpu' (CLI: --device cpu) to run on the CPU")
     return dev
+
+
+@lru_cache(maxsize=256)
+def device_constant(make: Callable, device: torch.device, *args):
+    """``make(*args)`` — a numpy array, or a tuple of them — as tensors on
+    ``device``, made and copied there once per (make, device, args). A copy
+    from host memory waits for the device, so code inside a step keeps its
+    constants here rather than uploading them at each call."""
+    value = make(*args)
+    if isinstance(value, tuple):
+        return tuple(torch.as_tensor(v, device=device) for v in value)
+    return torch.as_tensor(value, device=device)

@@ -12,12 +12,17 @@ shipped configurations, with random weights from a seed:
   * the recognizer's evaluation (ViT-Small + 6-layer NRTR greedy decode, bf16,
     batch 288, ``ccd_finetune_ard.yaml``) over synthetic LMDBs through
     ``evaluate_benchmarks`` as the CLI calls it;
-  * the pretraining step (student/teacher ViT-Small, SegHead, glyph clusters,
-    char pooling, 65536-wide DINO head, both losses, backward, AdamW, EMA;
-    bf16, batch 64, ``ccd_pretrain_vit_small.yaml``) through
-    ``build_pretrain_models`` / ``init_pretrain_state`` / ``make_pretrain_step``
-    on rendered words and their masks, first with ground-truth masks, then
-    with self-predicted ones.
+  * the pretraining step on raw images (on-device severity-5 augmentation
+    with the bilateral filter, three views and theta; student/teacher
+    ViT-Small, SegHead, glyph clusters, char pooling, 65536-wide DINO head,
+    both losses, backward, AdamW, EMA; bf16, batch 64,
+    ``ccd_pretrain_vit_small.yaml``) through ``build_pretrain_models`` /
+    ``init_pretrain_state`` / ``make_fused_pretrain_step`` on rendered words
+    as uint8 and their masks, first with ground-truth masks, then with
+    self-predicted ones;
+  * the ``train`` CLI (``python -m ccd_tpu_torch.cli.train``) on the same
+    configuration over a synthetic LMDB: 16 iterations in two dispatches of
+    8, a checkpoint, and a second run that resumes from it.
 
 It checks that each path went through the kernels (launch counts set to 0
 just before a path and read just after) and that its output agrees with a
@@ -46,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 import ccd_tpu_torch
+import ccd_tpu_torch.data.aug_ops as aug_ops_mod
 import ccd_tpu_torch.losses.losses as losses_mod
 import ccd_tpu_torch.models.vit as vit_mod
 import ccd_tpu_torch.training.pretrain_step as pretrain_step_mod
@@ -53,20 +59,22 @@ from ccd_tpu_torch.builders import build_pretrain_models, build_recognizer
 from ccd_tpu_torch.config import Config
 from ccd_tpu_torch.data.dataset import SupervisedDataset, build_dataset
 from ccd_tpu_torch.data.pipeline import DataLoader
+from ccd_tpu_torch.data.augment import pretrain_views
+from ccd_tpu_torch.data.random import TorchKey
 from ccd_tpu_torch.data.synthetic import make_synthetic_batch, write_synthetic_lmdb
 from ccd_tpu_torch.evaluation import runner
 from ccd_tpu_torch.losses import teacher_temp_schedule
 from ccd_tpu_torch.ops import _build
+from ccd_tpu_torch.ops.bilateral import bilateral_filter_fused, bilateral_filter_plain
 from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.flash_attention import (mha_packed_bias, mha_packed_bias_bwd,
                                                mha_packed_bias_bwd_plain,
                                                mha_packed_bias_plain)
 from ccd_tpu_torch.ops.fused_dino_ce import fused_dino_row_ce, fused_dino_row_ce_plain
-from ccd_tpu_torch.ops.warp import affine_grid, grid_sample
 from ccd_tpu_torch.training.pretrain_step import (PretrainState, init_pretrain_state,
-                                                  make_pretrain_step)
+                                                  make_fused_pretrain_step)
 
-KERNEL_LIBRARIES = ("packed_attention", "packed_attention_bwd", "fused_dino_ce")
+KERNEL_LIBRARIES = ("packed_attention", "packed_attention_bwd", "fused_dino_ce", "bilateral")
 
 # published peaks of one H100 SXM (dense): device memory and tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -81,8 +89,9 @@ CONFIG = os.path.join(PKG_DIR, "configs", "ccd_finetune_ard.yaml")
 PRETRAIN_CONFIG = os.path.join(PKG_DIR, "configs", "ccd_pretrain_vit_small.yaml")
 PRETRAIN_BATCH = 64                    # -> 2B = 128 images of 256 tokens, 3328 rows of 65536
 GT_STEPS, PREDICTED_STEPS = 6, 3       # pretraining steps in the two mask regimes
-LAUNCHES_PER_STEP = {"K1-fwd": 24, "K1-bwd": 12, "K2-fwd": 1, "K2-bwd": 1}
-STEP_PHASES = ("student_encode", "segment", "label_clusters", "warp", "teacher_encode",
+LAUNCHES_PER_STEP = {"K1-fwd": 24, "K1-bwd": 12, "K2-fwd": 1, "K2-bwd": 1, "K3": 2}
+CLI_ITERS, CLI_RESUMED_ITERS, CLI_WORDS = 16, 48, 1024  # 1024 words: 16 iterations an epoch
+STEP_PHASES = ("augment", "student_encode", "segment", "label_clusters", "warp", "teacher_encode",
                "pool_head", "seg_loss", "dino_ce", "backward", "update")
 
 # |kernel - plain| on O(1) outputs. bf16: both round p and the output to bf16
@@ -115,6 +124,15 @@ TOL_PROBS = 2e-2
 # common and bf16 rounding flips some; a flip changes every later step of its
 # row. A run through a wrong kernel agrees on about 1/92 of the positions.
 MIN_TOKEN_AGREEMENT = 0.5
+# Bilateral filter, kernel against plain version, fp32 [0,1] images: the same
+# operations in the same order (no FMA contraction in the kernel), so only
+# expf's last bits and the division differ: a few 1e-7 on a weighted mean.
+TOL_BILATERAL = 1e-5
+# fp32 operations per tap of the bilateral filter: L1 distance (3 sub, 3 abs,
+# 2 add), x255, the exponent's argument (3 mul, 1 add), expf (~4 beside its
+# one exponential on the special-function unit), 3 multiply-adds into the
+# numerator and 1 add into the denominator
+BILATERAL_OPS_PER_TAP = 25
 
 
 def emit(obj) -> None:
@@ -308,24 +326,96 @@ def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_tem
 
 def unported_kernel_bounds(batch: int):
     """Bounds of the TPU kernels still to port, from the shapes their paths
-    would give them (no kernel to time yet). K1b: the packed kernels' work on
-    folded (B*H, S, D) q, k, v. K3: the bilateral filter of the augmentation,
-    81 taps a pixel at about 20 fp32 operations a tap (L1 colour distance over
-    3 channels, two exponent arguments, one exp, 4 multiply-adds into
-    numerator and denominator), one fp32 image in and one out."""
+    would give them (no kernel to time yet): the packed kernels' work on
+    folded (B*H, S, D) q, k, v."""
     shape = (2 * batch, 256, 384, 6)
     k1b_fwd = attention_bound(*shape, torch.bfloat16, False)
     k1b_bwd = attention_bwd_bound(*shape, torch.bfloat16, False)
-    pixels = batch * 32 * 128
-    t_ops = pixels * 81 * 20 / PEAK_FLOPS[torch.float32] * 1e3
-    t_bytes = 2 * pixels * 3 * 4 / HBM_BYTES_PER_S * 1e3
     return {"K1b-fwd": {"shape": [shape[0] * 6, 256, 64], "dtype": "bfloat16",
                         "bound_ms": k1b_fwd[0], "bound_by": k1b_fwd[1]},
             "K1b-bwd": {"shape": [shape[0] * 6, 256, 64], "dtype": "bfloat16",
-                        "bound_ms": k1b_bwd[0], "bound_by": k1b_bwd[1]},
-            "K3": {"shape": [batch, 32, 128, 3], "dtype": "float32",
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}}
+                        "bound_ms": k1b_bwd[0], "bound_by": k1b_bwd[1]}}
+
+
+def bilateral_taps(rad2: torch.Tensor, max_radius: int) -> int:
+    """Taps a pixel the filter evaluates, summed over the samples: those of
+    the disc of ``max_radius`` with dy²+dx² <= rad2 (the centre always)."""
+    d2 = torch.tensor([dy * dy + dx * dx for dy in range(-max_radius, max_radius + 1)
+                       for dx in range(-max_radius, max_radius + 1)
+                       if dy * dy + dx * dx <= max_radius * max_radius], dtype=torch.float32)
+    return int(((d2[None] <= rad2.float().cpu()[:, None]) | (d2[None] == 0)).sum())
+
+
+def bilateral_bound(shape, rad2: torch.Tensor, max_radius: int):
+    """One fp32 image read and one written (and 3 scalars a sample), over the
+    memory rate; the taps this run's radii need times the fp32 operations a
+    tap, over the fp32 rate."""
+    b, h, w, c = shape
+    nbytes = 2 * b * h * w * c * 4 + 3 * b * 4
+    taps = bilateral_taps(rad2, max_radius) * h * w
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = taps * BILATERAL_OPS_PER_TAP / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), taps
+
+
+def kernel_device_ms(fn, name_part: str, reps: int = 20) -> float:
+    """Mean device time of the kernels whose name holds ``name_part`` over
+    ``reps`` calls of ``fn``, from the profiler's device trace (for a
+    kernel whose calls the host cannot issue as fast as the card runs them)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if name_part in ev.key:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            return us / ev.count / 1e3
+    raise SystemExit(f"no device time for a kernel named like {name_part!r} in the trace")
+
+
+def check_bilateral(shape, fixed_radius, gen):
+    """K3 against its plain version on the card, per-sample radius in {1..5}
+    (or one fixed radius) and sigmas in [10, 250], as op_bilateral_blur draws
+    them."""
+    b = shape[0]
+    x = torch.rand(shape, device="cuda", generator=gen)
+    sc = 10.0 + 240.0 * torch.rand(b, device="cuda", generator=gen)
+    ss = 10.0 + 240.0 * torch.rand(b, device="cuda", generator=gen)
+    if fixed_radius is None:
+        r = 5
+        rad2 = torch.randint(1, 6, (b,), device="cuda", generator=gen).float() ** 2
+    else:
+        r = fixed_radius
+        rad2 = torch.full((b,), float(r * r), device="cuda")
+    out = bilateral_filter_fused(x, sc, ss, rad2, r)
+    torch.cuda.synchronize()
+    ref = bilateral_filter_plain(x, sc, ss, rad2, r)
+    err = float((out - ref).abs().max())
+    what = f"bilateral {shape} radius {'per sample' if fixed_radius is None else r}"
+    if out.shape != x.shape or out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        raise SystemExit(f"{what}: bad output")
+    if not err <= TOL_BILATERAL:
+        raise SystemExit(f"{what}: max |kernel - plain| = {err} > {TOL_BILATERAL}")
+    bound_ms, bound_by, taps = bilateral_bound(shape, rad2, r)
+    call = lambda: bilateral_filter_fused(x, sc, ss, rad2, r)
+    return {"shape": list(shape), "dtype": "float32", "max_radius": r,
+            "radius": "per sample 1..5" if fixed_radius is None else fixed_radius,
+            "max_abs_err": err, "tol": TOL_BILATERAL,
+            # the kernel's own time on the card; a call through the wrapper
+            # (its few small argument kernels included) takes longer on the
+            # host than on the card, so events around calls time the host
+            "kernel_ms": kernel_device_ms(call, "bilateral_kernel"),
+            "wrapper_call_ms": time_ms(call),
+            "plain_ms": time_ms(lambda: bilateral_filter_plain(x, sc, ss, rad2, r), reps=5,
+                                warmup=1),
+            "library_ms": None,  # no library call computes this filter
+            "bound_ms": bound_ms, "bound_by": bound_by, "taps": taps, "exp_count": taps,
+            "bilateral_ops_per_tap": BILATERAL_OPS_PER_TAP}
 
 
 def count_refusals(what, calls, expected=(ValueError, TypeError, RuntimeError)):
@@ -363,9 +453,10 @@ def decode_with_plain_attention(model, images: torch.Tensor) -> torch.Tensor:
 
 
 def device_busy(fn):
-    """(wall ms, summed device-kernel ms, top kernels) of one call under
-    torch.profiler; the kernel sum is None when the trace holds no device
-    time. Named ranges (the step's phases) are not kernels and are left out."""
+    """(wall ms, summed device-kernel ms, top kernels, device-kernel launches)
+    of one call under torch.profiler; the kernel sum is None when the trace
+    holds no device time. Named ranges (the step's phases) are not kernels
+    and are left out."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -385,10 +476,10 @@ def device_busy(fn):
         if us > 0:
             rows.append((us / 1e3, ev.count, ev.key))
     if not rows:
-        return wall_ms, None, []
+        return wall_ms, None, [], 0
     rows.sort(reverse=True)
     top = [{"kernel": k[:60], "ms": ms, "calls": n} for ms, n, k in rows[:8]]
-    return wall_ms, sum(r[0] for r in rows), top
+    return wall_ms, sum(r[0] for r in rows), top, sum(r[1] for r in rows)
 
 
 def evaluation_path(card: str) -> int:
@@ -480,7 +571,7 @@ def evaluation_path(card: str) -> int:
                                           warmup=1),
                      "batch_ms": time_ms(lambda: runner.decode(model, images), reps=5, warmup=1)}
         # how busy the card is during one batch (the profiler slows the host side)
-        prof_wall, busy, top = device_busy(lambda: runner.decode(model, images))
+        prof_wall, busy, top, _ = device_busy(lambda: runner.decode(model, images))
         split.update({"profiled_batch_wall_ms": prof_wall, "profiled_device_busy_ms": busy,
                       "profiled_device_idle_share": None if busy is None
                       else 1.0 - busy / prof_wall, "profiled_top_kernels": top})
@@ -518,15 +609,19 @@ class PlainAttention(torch.autograd.Function):
 
 @contextlib.contextmanager
 def plain_versions_in_place_of_kernels():
-    """Inside, the ViT's attention and the fused CE of the package go through
-    their plain versions: done here by the script, the package has no switch."""
-    saved = (vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce)
+    """Inside, the ViT's attention, the fused CE and the augmentation's
+    bilateral filter go through their plain versions: done here by the
+    script, the package has no switch."""
+    saved = (vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce,
+             aug_ops_mod.bilateral_filter_fused)
     vit_mod.mha_packed_bias = PlainAttention.apply
     losses_mod.fused_dino_row_ce = fused_dino_row_ce_plain
+    aug_ops_mod.bilateral_filter_fused = bilateral_filter_plain
     try:
         yield
     finally:
-        vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce = saved
+        (vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce,
+         aug_ops_mod.bilateral_filter_fused) = saved
 
 
 class PhaseEvents:
@@ -550,41 +645,50 @@ class PhaseEvents:
 
 def kernel_counts():
     return {"K1-fwd": mha_packed_bias.launches, "K1-bwd": mha_packed_bias_bwd.launches,
-            "K2-fwd": fused_dino_row_ce.launches, "K2-bwd": fused_dino_row_ce.bwd_launches}
+            "K2-fwd": fused_dino_row_ce.launches, "K2-bwd": fused_dino_row_ce.bwd_launches,
+            "K3": bilateral_filter_fused.launches}
 
 
 def reset_kernel_counts() -> None:
     mha_packed_bias.launches = mha_packed_bias_bwd.launches = 0
     fused_dino_row_ce.launches = fused_dino_row_ce.bwd_launches = 0
+    bilateral_filter_fused.launches = 0
 
 
-def pretrain_batch(batch: int, seed: int):
-    """Rendered words and their glyph masks as the step's inputs: three views
-    (the image; a photometric variant; a variant warped by a small affine
-    theta through the port's own sampler) — the augmentation pipeline is not
-    ported yet, so the draws are made here with numpy."""
+def pretrain_inputs(batch: int, seed: int):
+    """Rendered words as uint8 and their glyph masks as uint8, on the card:
+    what the data path hands the fused step, which draws the views itself."""
     images, masks, _words = make_synthetic_batch(batch, seed=seed)
-    rng = np.random.default_rng(seed)
-    x = normalise(torch.from_numpy(images).cuda())                      # (B, H, W, 3)
-    h, w = x.shape[1:3]
+    return torch.from_numpy(images).cuda(), torch.from_numpy(masks.astype(np.uint8)).cuda()
 
-    def photometric():
-        gain = torch.from_numpy(rng.uniform(0.8, 1.2, (batch, 1, 1, 1)).astype(np.float32))
-        shift = torch.from_numpy(rng.uniform(-0.2, 0.2, (batch, 1, 1, 1)).astype(np.float32))
-        noise = torch.from_numpy(rng.normal(0, 0.05, tuple(x.shape)).astype(np.float32))
-        return x * gain.cuda() + shift.cuda() + noise.cuda()
 
-    angle = rng.uniform(-0.08, 0.08, batch)
-    zoom = rng.uniform(0.94, 1.06, batch)
-    theta = np.tile(np.eye(3, dtype=np.float32), (batch, 1, 1))
-    theta[:, 0, 0] = theta[:, 1, 1] = zoom * np.cos(angle)
-    theta[:, 0, 1], theta[:, 1, 0] = -zoom * np.sin(angle) * h / w, zoom * np.sin(angle) * w / h
-    theta[:, 0, 2] = rng.uniform(-0.06, 0.06, batch)
-    theta[:, 1, 2] = rng.uniform(-0.04, 0.04, batch)
-    theta = torch.from_numpy(theta).cuda()
-    view2 = grid_sample(photometric(), affine_grid(theta[:, :2], (h, w)))
-    views = torch.stack([x, photometric(), view2], dim=1)               # (B, 3, H, W, 3)
-    return views, torch.from_numpy(masks).cuda(), theta
+def augmentation_alone(raw: torch.Tensor) -> dict:
+    """``pretrain_views`` at the step's batch on its own: its time, the card's
+    idle share and kernel launches under the profiler, and the host
+    synchronisations it makes (none are allowed: it runs inside the step)."""
+    import warnings
+    images = raw.float() / 255.0
+    key = TorchKey(torch.Generator(device="cuda").manual_seed(SEED))
+    views, theta = pretrain_views(key, images)
+    if views.shape != (raw.shape[0], 3, *raw.shape[1:]) or theta.shape != (raw.shape[0], 3, 3) \
+            or not bool(torch.isfinite(views).all()) or not bool(torch.isfinite(theta).all()):
+        raise SystemExit("augmentation: views or theta not finite or of the wrong shape")
+    ms = time_ms(lambda: pretrain_views(key, images), reps=5, warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pretrain_views(key, images)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:200] for w in caught if "synchroniz" in str(w.message).lower()]
+    wall, busy, top, n_kernels = device_busy(lambda: pretrain_views(key, images))
+    return {"pretrain_views_ms": ms, "host_synchronisations": len(syncs),
+            "host_synchronisation_messages": syncs[:3],
+            "profiled_wall_ms": wall, "profiled_device_busy_ms": busy,
+            "profiled_device_idle_share": None if busy is None else 1.0 - busy / wall,
+            "profiled_kernel_launches": n_kernels, "profiled_top_kernels": top}
 
 
 def pretrain_path(card: str) -> dict:
@@ -598,7 +702,7 @@ def pretrain_path(card: str) -> dict:
             or tuple(student.head.last_layer.weight_v.shape) != (65536, 256) \
             or int(config.batch_size_per_gpu) != PRETRAIN_BATCH:
         raise SystemExit("pretrain path: not the full-width bf16 ViT-Small configuration")
-    views, masks, theta = pretrain_batch(PRETRAIN_BATCH, seed=321)
+    raw, masks = pretrain_inputs(PRETRAIN_BATCH, seed=321)
     # the shipped schedule, except its length: warm-up and cosine are cut to
     # this run's few steps so that the learning rate is not ~0 throughout
     schedule = dict(
@@ -611,15 +715,16 @@ def pretrain_path(card: str) -> dict:
             int(config.warmup_teacher_temp_epochs), 2),
         clip_grad=config.clip_grad, freeze_last_layer=int(config.freeze_last_layer),
         global_batch=PRETRAIN_BATCH, imgnet_based=int(config.imgnet_based))
-    step_gt = make_pretrain_step(gt_mask_epochs=30, **schedule)
-    step_predicted = make_pretrain_step(gt_mask_epochs=0, **schedule)
+    step_gt = make_fused_pretrain_step(gt_mask_epochs=30, **schedule)
+    step_predicted = make_fused_pretrain_step(gt_mask_epochs=0, **schedule)
 
     # the same state once more, for the same first step through the plain versions
     twin = PretrainState(
         student=copy.deepcopy(student), teacher=copy.deepcopy(teacher),
         opt_state=copy.deepcopy(state.opt_state), center=state.center.clone(), iteration=0,
-        generator=torch.Generator(device="cuda"))
+        generator=torch.Generator(device="cuda"), aug_generator=torch.Generator(device="cuda"))
     twin.generator.set_state(state.generator.get_state())
+    twin.aug_generator.set_state(state.aug_generator.get_state())
     teacher0 = [p.detach().clone() for p in teacher.parameters()]
 
     def run_step(step, st):
@@ -627,7 +732,7 @@ def pretrain_path(card: str) -> dict:
         before = kernel_counts()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        st, metrics = step(st, views, masks, theta)
+        st, metrics = step(st, raw, masks)
         b.record()
         torch.cuda.synchronize()
         made = {k: v - before[k] for k, v in kernel_counts().items()}
@@ -693,12 +798,13 @@ def pretrain_path(card: str) -> dict:
     for name, a, b in PhaseEvents.records:
         phases[name] += a.elapsed_time(b)
     # ---- and how busy the card is during one step (the profiler slows the host side)
-    prof_wall, busy, top = device_busy(lambda: step_gt(state, views, masks, theta))
+    prof_wall, busy, top, n_kernels = device_busy(lambda: step_gt(state, raw, masks))
     n_steps = GT_STEPS + PREDICTED_STEPS + 2
     launches = kernel_counts()
     if launches != {k: v * n_steps for k, v in LAUNCHES_PER_STEP.items()} \
             or state.iteration != n_steps:
         raise SystemExit(f"pretrain path: {launches} launches over {state.iteration} steps")
+    augment = augmentation_alone(raw)  # after the count: its launches are not the path's
 
     teacher_moved = max(float((p - p0).abs().max()) for p, p0 in
                         zip(teacher.parameters(), teacher0))
@@ -719,14 +825,92 @@ def pretrain_path(card: str) -> dict:
           "peak_device_memory_bytes": peak_bytes,
           "profiled_step_wall_ms": prof_wall, "profiled_device_busy_ms": busy,
           "profiled_device_idle_share": None if busy is None else 1.0 - busy / prof_wall,
-          "profiled_top_kernels": top,
+          "profiled_kernel_launches": n_kernels, "profiled_top_kernels": top,
+          "augmentation_alone": augment,
           "first_step": first, "first_step_plain_versions": plain,
           "first_step_loss_rel_diff": loss_rel, "tol_step_loss_rel": TOL_STEP_LOSS_REL,
           "first_step_grad_rel_l2_diff": grad_rel, "tol_step_grad_rel": TOL_STEP_GRAD_REL,
           "first_step_grad_checksum": grad_checksum, "first_step_center_rel_diff": center_rel,
           "losses": history, "teacher_moved_max_abs": teacher_moved,
           "center_max_abs": center_moved})
+    if augment["host_synchronisations"]:
+        raise SystemExit("augmentation: pretrain_views waits for the card "
+                         f"{augment['host_synchronisations']} times; it must not")
     return launches
+
+
+def train_cli_phase(card: str) -> dict:
+    """``python -m ccd_tpu_torch.cli.train`` on the full ViT-Small pretraining
+    configuration over a synthetic LMDB of rendered words with masks (written
+    by the CLI's ``--synthetic`` into a temporary directory): CLI_ITERS
+    iterations (dispatches of 8), a checkpoint, then a second run that
+    resumes from it and goes on to CLI_RESUMED_ITERS; then, in a directory of
+    its own, CLI_RESUMED_ITERS iterations with 2 loader threads instead of
+    the configuration's 16 (the threads share the interpreter lock with the
+    loop that issues the step's launches). The configuration is the shipped
+    one but for ``show_iters`` = 8, so that each dispatch is logged and
+    checked for a NaN loss. Each run's rate after its first dispatch comes
+    from the log's timestamps."""
+    import re
+    from datetime import datetime
+
+    import yaml
+    with open(PRETRAIN_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    k = int(cfg["training"]["steps_per_dispatch"])
+    cfg["training"]["show_iters"] = k
+    batch = int(cfg["batch_size_per_gpu"])
+    tmp = tempfile.mkdtemp(prefix="ccd_chip_smoke_cli_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(PKG_DIR)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    logged_line = re.compile(r"\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) [^\]]*\] "
+                             r"it (\d+) epoch \d+ loss (\S+) \(mask")
+    runs = []
+    try:
+        for workers, max_iters, resumes in ((None, CLI_ITERS, False),
+                                            (None, CLI_RESUMED_ITERS, True),
+                                            (2, CLI_RESUMED_ITERS, False)):
+            run_dir = os.path.join(tmp, f"loader_threads_{workers or 'as_configured'}")
+            os.makedirs(run_dir, exist_ok=True)
+            run_cfg = copy.deepcopy(cfg)
+            if workers:
+                run_cfg["dataset"]["num_workers"] = workers
+            cfg_path = os.path.join(run_dir, "pretrain_vit_small.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(run_cfg, f)
+            cmd = [sys.executable, "-m", "ccd_tpu_torch.cli.train", "-c", cfg_path,
+                   "--synthetic", str(CLI_WORDS), "--max_iters", str(max_iters)]
+            t0 = time.time()
+            proc = subprocess.run(cmd, cwd=run_dir, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.time() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise SystemExit(f"train CLI exited with {proc.returncode}:\n{log[-4000:]}")
+            rate = re.search(r"\(([0-9.]+) img/s with data loading\)", log)
+            logged = [(datetime.strptime(t, "%Y-%m-%d %H:%M:%S,%f"), int(it), float(loss))
+                      for t, it, loss in logged_line.findall(log)]
+            ckpt = os.path.join(run_dir, "saved_models", cfg["global"]["name"],
+                                f"ckpt_{max_iters:08d}.pt")
+            resumed = f"resuming from checkpoint step {CLI_ITERS}" in log
+            if rate is None or len(logged) < 2 or not all(np.isfinite([x[2] for x in logged])) \
+                    or not os.path.isfile(ckpt) or resumed != resumes:
+                raise SystemExit(f"train CLI to {max_iters}: no rate, a non-finite loss, no "
+                                 f"checkpoint or a wrong resume ({resumed}):\n{log[-4000:]}")
+            (t_first, it_first, _), (t_last, it_last, _) = logged[0], logged[-1]
+            runs.append({"loader_threads": workers or int(cfg["dataset"]["num_workers"]),
+                         "max_iters": max_iters, "resumed_from": CLI_ITERS if resumed else 0,
+                         "images_per_s_with_loading": float(rate.group(1)),
+                         "images_per_s_with_loading_after_first_dispatch":
+                             batch * (it_last - it_first) / (t_last - t_first).total_seconds(),
+                         "logged_losses": [x[2] for x in logged], "process_wall_s": wall,
+                         "checkpoint": os.path.basename(ckpt)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {"phase": "train_cli", "gpu": card, "config": "ccd_pretrain_vit_small.yaml",
+              "words": CLI_WORDS, "batch": batch, "steps_per_dispatch": k, "runs": runs}
+    emit(result)
+    return result
 
 
 def kernel_entry(name, source, replaces, launches, head, variants, **extra):
@@ -781,6 +965,9 @@ def main() -> None:
            for k in (1000, 1001) for dtype in (bf16, f32) for swap in (True, False)]
     ce.append(check_fused_ce(7, 100, f32, False, gen))       # odd rows without swap_halves
     ce_fwd, ce_bwd = [c[0] for c in ce], [c[1] for c in ce]
+    bil = [check_bilateral((PRETRAIN_BATCH, 32, 128, 3), None, gen),
+           check_bilateral((PRETRAIN_BATCH, 32, 128, 3), 2, gen),
+           check_bilateral((3, 17, 45, 3), None, gen)]           # edge tiles in both axes
 
     zeros = lambda *shape, dtype=bf16: torch.zeros(shape, device="cuda", dtype=dtype)
     bad_attention = [(1, 100, 3 * 64), (1, 64, 3 * 48), (1, 4096, 3 * 64)]  # S, D, shared memory
@@ -795,10 +982,18 @@ def main() -> None:
             lambda: fused_dino_row_ce(zeros(3, 64), zeros(3, 64), zeros(1, 64), swap_halves=True),
             lambda: fused_dino_row_ce(zeros(4, 64, dtype=torch.float16),
                                       zeros(4, 64, dtype=torch.float16), zeros(1, 64)),
-            lambda: fused_dino_row_ce(zeros(4, 64), zeros(4, 32), zeros(1, 64))])}
+            lambda: fused_dino_row_ce(zeros(4, 64), zeros(4, 32), zeros(1, 64))]),
+        "K3": count_refusals("bilateral", [
+            lambda: bilateral_filter_fused(zeros(2, 8, 8, 4, dtype=f32), zeros(2, dtype=f32),
+                                           zeros(2, dtype=f32), zeros(2, dtype=f32), 2),
+            lambda: bilateral_filter_fused(zeros(2, 8, 8, 3), zeros(2), zeros(2), zeros(2), 2),
+            lambda: bilateral_filter_fused(zeros(2, 8, 8, 3, dtype=f32), torch.ones(2),
+                                           zeros(2, dtype=f32), zeros(2, dtype=f32), 2),
+            lambda: bilateral_filter_fused(zeros(2, 8, 8, 3, dtype=f32), zeros(2, dtype=f32),
+                                           zeros(2, dtype=f32), zeros(2, dtype=f32), 6)])}
     emit({"phase": "kernel_checks", "gpu": card, "refused_unsupported": refused,
           "passed": {"K1-fwd": len(fwd), "K1-bwd": len(bwd), "K2-fwd": len(ce_fwd),
-                     "K2-bwd": len(ce_bwd)},  # each check's numbers: the kernels line
+                     "K2-bwd": len(ce_bwd), "K3": len(bil)},  # numbers: the kernels line
           "bounds_of_kernels_still_to_port": unported_kernel_bounds(PRETRAIN_BATCH)})
 
     # ---- the two main paths at full width, launch counts read around each
@@ -806,6 +1001,7 @@ def main() -> None:
     eval_launches = evaluation_path(card)
     reset_kernel_counts()
     train_launches = pretrain_path(card)
+    train_cli_phase(card)
 
     emit({"kernels": [
         kernel_entry("K1-fwd packed_attention_forward (mha_packed_bias)",
@@ -825,7 +1021,11 @@ def main() -> None:
         kernel_entry("K2-bwd fused_dino_ce_backward (fused_dino_row_ce, backward)",
                      "ccd_tpu_torch/csrc/fused_dino_ce.cu",
                      "ccd_tpu/ops/fused_dino_ce.py:215", train_launches["K2-bwd"],
-                     ce_bwd[0], ce_bwd)]})
+                     ce_bwd[0], ce_bwd),
+        kernel_entry("K3 bilateral_filter_forward (bilateral_filter_fused)",
+                     "ccd_tpu_torch/csrc/bilateral.cu",
+                     "ccd_tpu/data/aug_ops.py:995", train_launches["K3"], bil[0], bil,
+                     wrapper_call_ms=bil[0]["wrapper_call_ms"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

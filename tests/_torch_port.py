@@ -1,6 +1,7 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py)."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -22,3 +23,70 @@ def perturbed_numpy_tree(params, seed: int, amount: float = 0.05):
 
 def to_jnp(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+class JaxKey:
+    """The test-side twin of ``ccd_tpu_torch.data.random.TorchKey``: the same
+    methods, answered by ``jax.random`` on a real JAX key, the draws returned
+    as CPU torch tensors. The port's ops make the same calls in the same
+    order and shapes as the JAX ops, so one JAX key gives both packages
+    bitwise-identical draws."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, n: int = 2):
+        return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def fold_in(self, data: int):
+        return JaxKey(jax.random.fold_in(self.key, data))
+
+    @staticmethod
+    def _torch(a):
+        import torch
+        return torch.from_numpy(np.array(a))
+
+    def uniform(self, shape, lo=0.0, hi=1.0):
+        return self._torch(jax.random.uniform(self.key, tuple(shape), minval=lo, maxval=hi))
+
+    def bernoulli(self, p, shape):
+        return self._torch(jax.random.bernoulli(self.key, p, tuple(shape)))
+
+    def randint(self, shape, lo, hi):
+        return self._torch(jax.random.randint(self.key, tuple(shape), lo, hi)).long()
+
+    def normal(self, shape):
+        return self._torch(jax.random.normal(self.key, tuple(shape)))
+
+    def laplace(self, shape):
+        return self._torch(jax.random.laplace(self.key, tuple(shape)))
+
+
+def seeded_images(seed: int, shape=(4, 32, 128, 3)) -> np.ndarray:
+    """Text-like test images in [0, 1]: flat backgrounds with a few darker
+    strokes and some noise, so that histograms, quantisation, clustering and
+    edges all have something to work on."""
+    rng = np.random.default_rng(seed)
+    b, h, w, c = shape
+    img = np.ones(shape, np.float32) * rng.uniform(0.55, 0.95, (b, 1, 1, c)).astype(np.float32)
+    for i in range(b):
+        for _ in range(4):
+            y0, x0 = rng.integers(2, h - 12), rng.integers(2, w - 16)
+            img[i, y0:y0 + rng.integers(6, 10), x0:x0 + rng.integers(3, 12)] = \
+                rng.uniform(0.05, 0.4, c)
+    img += rng.normal(scale=0.03, size=shape).astype(np.float32)
+    return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests with one intra-op torch thread. The suite runs
+    six workers on the machine's cores; the augmentation's thousands of small
+    ops, each a parallel region over all cores in every worker, then spend
+    most of their time waiting for descheduled threads (the fused-step tests
+    took 60x longer under the suite's load than alone)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

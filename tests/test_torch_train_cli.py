@@ -1,0 +1,196 @@
+"""The pretraining loop of the port around the step: the fused step (raw
+uint8 in, views drawn on the device), the multi step, checkpoints, the data
+path and the ``train`` CLI, on the CPU at ``vit_micro`` / smoke size.
+
+What holds the slice to the JAX package: ``pretrain_views`` against JAX's on
+one key (tests/test_torch_aug_ops.py) and the step on given views against
+JAX's six steps (tests/test_torch_pretrain_step.py). Here the fused step is
+held to that step on the views the port's ``pretrain_views`` makes from the
+same generator state, and K multi-step iterations to K fused steps: same
+process, same arithmetic, so losses and parameters must be equal (0
+tolerance). The CLI is checked end to end: finite losses, a checkpoint
+written, and a second run that resumes from it.
+"""
+
+import copy
+import logging
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ccd_tpu_torch.checkpoints.torch_io import CheckpointManager
+from ccd_tpu_torch.data.augment import pretrain_views
+from ccd_tpu_torch.data.dataset import PretrainDataset, build_dataset, mask_env_path
+from ccd_tpu_torch.data.pipeline import device_chunks, stage_pretrain_chunk
+from ccd_tpu_torch.data.random import TorchKey
+from ccd_tpu_torch.data.synthetic import make_synthetic_batch, write_synthetic_lmdb
+from ccd_tpu_torch.models.pretrain import CCDPretrainModel
+from ccd_tpu_torch.training.pretrain_step import (init_pretrain_state, make_fused_pretrain_step,
+                                                  make_multi_pretrain_step, make_pretrain_step,
+                                                  pretrain_state_payload,
+                                                  restore_pretrain_state)
+from ccd_tpu_torch.utils import MetricLogger
+
+from _torch_port import one_torch_thread  # noqa: F401 (fixture)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = os.path.join(REPO, "ccd_tpu_torch", "configs", "smoke_pretrain.yaml")
+BATCH = 4
+SCHEDULE = dict(base_lr=5e-4, min_lr=1e-6, total_iters=100, warmup_iters=1,
+                weight_decay=0.04, weight_decay_end=0.4, momentum_teacher=0.99,
+                teacher_temps=np.full(10, 0.04, np.float32), clip_grad=3.0,
+                freeze_last_layer=0, global_batch=BATCH, imgnet_based=1000)
+
+
+def _state(seed: int = 0):
+    student = CCDPretrainModel(arch="vit_micro", out_dim=256, with_seg_head=True,
+                               norm_last_layer=False, drop_path_rate=0.1)
+    teacher = CCDPretrainModel(arch="vit_micro", out_dim=256, with_seg_head=False)
+    g = torch.Generator().manual_seed(seed)
+    student.reset_parameters(g)
+    teacher.reset_parameters(g)
+    return init_pretrain_state(student, teacher, seed=seed)
+
+
+def _twin(state):
+    """A copy of ``state`` with copies of its generators' states."""
+    twin = copy.copy(state)
+    twin.student, twin.teacher = copy.deepcopy(state.student), copy.deepcopy(state.teacher)
+    twin.opt_state = copy.deepcopy(state.opt_state)
+    twin.center = state.center.clone()
+    twin.generator, twin.aug_generator = torch.Generator(), torch.Generator()
+    twin.generator.set_state(state.generator.get_state())
+    twin.aug_generator.set_state(state.aug_generator.get_state())
+    return twin
+
+
+def _raw(k: int, seed: int = 0):
+    images, masks, _ = make_synthetic_batch(k * BATCH, seed=seed)
+    return (torch.from_numpy(images).reshape(k, BATCH, 32, 128, 3),
+            torch.from_numpy(masks.astype(np.uint8)).reshape(k, BATCH, 32, 128))
+
+
+def _assert_same_state(a, b):
+    for x, y in ((a.student, b.student), (a.teacher, b.teacher)):
+        for (name, p), q in zip(x.state_dict().items(), y.state_dict().values()):
+            torch.testing.assert_close(p, q, rtol=0, atol=0, msg=name)
+    for p, q in zip(a.opt_state.mu + a.opt_state.nu, b.opt_state.mu + b.opt_state.nu):
+        torch.testing.assert_close(p, q, rtol=0, atol=0)
+    torch.testing.assert_close(a.center, b.center, rtol=0, atol=0)
+    assert a.iteration == b.iteration
+
+
+def test_fused_step_is_the_step_on_the_views_pretrain_views_draws():
+    raws, masks = _raw(1)
+    fused, plain = _state(), _state()
+    key_gen = torch.Generator()
+    key_gen.set_state(plain.aug_generator.get_state())
+    fused, got = make_fused_pretrain_step(**SCHEDULE)(fused, raws[0], masks[0])
+    views, theta = pretrain_views(TorchKey(key_gen), raws[0].float() / 255.0)
+    plain, want = make_pretrain_step(**SCHEDULE)(plain, views, masks[0].float(), theta)
+    for k in ("loss", "mask_loss", "dino_loss"):
+        assert torch.isfinite(got[k]) and float(got[k]) == float(want[k]), k
+    _assert_same_state(fused, plain)
+    # the views were drawn from the state's own generator, which moved on
+    torch.testing.assert_close(fused.aug_generator.get_state(), key_gen.get_state(),
+                               rtol=0, atol=0)
+    assert not torch.equal(fused.aug_generator.get_state(), _state().aug_generator.get_state())
+
+
+def test_multi_step_is_k_fused_steps():
+    raws, masks = _raw(3, seed=1)
+    multi = _state(1)
+    single = _twin(multi)
+    multi, stacked = make_multi_pretrain_step(**SCHEDULE)(multi, raws, masks)
+    fused = make_fused_pretrain_step(**SCHEDULE)
+    history = []
+    for raw, mask in zip(raws, masks):
+        single, m = fused(single, raw, mask)
+        history.append(m)
+    assert set(stacked) == {"loss", "mask_loss", "dino_loss", "lr", "wd", "epoch"}
+    for k, v in stacked.items():
+        assert v.shape == (3,)
+        np.testing.assert_array_equal(v.numpy(), np.array([float(m[k]) for m in history]), k)
+    _assert_same_state(multi, single)
+    assert multi.iteration == 3
+
+
+def test_checkpoint_manager_keeps_and_restores(tmp_path):
+    manager = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=2, keep_period=4)
+    assert manager.latest_step() is None and manager.restore() is None
+    for step in range(1, 7):
+        manager.save(step, {"w": torch.full((2,), float(step)), "iteration": step})
+    assert manager.all_steps() == [4, 5, 6]  # the newest two, and 4 (keep_period)
+    assert manager.latest_step() == 6
+    payload = manager.restore()
+    assert payload["iteration"] == 6 and torch.equal(payload["w"], torch.full((2,), 6.0))
+
+
+def test_restore_puts_the_payload_back(tmp_path):
+    raws, masks = _raw(1, seed=2)
+    trained = _state(2)
+    trained, _ = make_fused_pretrain_step(**SCHEDULE)(trained, raws[0], masks[0])
+    manager = CheckpointManager(str(tmp_path))
+    manager.save(trained.iteration, pretrain_state_payload(trained))
+    fresh = restore_pretrain_state(_state(3), manager.restore(1))
+    _assert_same_state(fresh, trained)
+    assert fresh.opt_state.count == trained.opt_state.count == 1
+
+
+def test_pretrain_dataset_and_staging(tmp_path):
+    root = str(tmp_path / "training" / "SYNTH")
+    mask_root = str(tmp_path / "Mask")
+    write_synthetic_lmdb(root, 6, seed=5, with_mask_lmdb=True,
+                         mask_path=mask_env_path(root, mask_root))
+    ds = build_dataset(PretrainDataset, [root], is_training=True, img_h=32, img_w=128,
+                       mask=True, mask_path=mask_root)
+    image, mask = ds[0]
+    assert image.shape == (32, 128, 3) and image.dtype == np.uint8
+    assert mask.shape == (32, 128) and set(np.unique(mask)) <= {0.0, 1.0} and mask.any()
+    batches = iter([(np.stack([ds[i][0], ds[i + 1][0]]), np.stack([ds[i][1], ds[i + 1][1]]))
+                    for i in range(0, 6, 2)])
+    raws, ms, ready = next(device_chunks(batches, 3, lambda c: stage_pretrain_chunk(
+        c, torch.device("cpu"))))
+    assert ready is None and raws.shape == (3, 2, 32, 128, 3) and raws.dtype == torch.uint8
+    assert ms.shape == (3, 2, 32, 128) and ms.dtype == torch.uint8
+    assert torch.equal(ms[0, 0], torch.from_numpy(mask.astype(np.uint8)))
+
+    def failing(_chunk):
+        raise OSError("no such file")
+
+    with pytest.raises(OSError):
+        next(device_chunks(iter([(1, 2)] * 2), 1, failing))
+
+
+def test_metric_logger():
+    log = MetricLogger(delimiter="  ")
+    for v in (1.0, 2.0, 3.0):
+        log.update(loss=v)
+    log.synchronize_between_processes()  # one process: nothing to do
+    assert log.loss.global_avg == 2.0 and log.loss.median == 2.0
+    assert str(log).startswith("loss: 2.0000")
+
+
+def test_train_cli_on_the_cpu_writes_a_checkpoint_and_resumes(tmp_path, monkeypatch, caplog):
+    from ccd_tpu_torch.cli.train import main
+    monkeypatch.chdir(tmp_path)  # checkpoints and logs land under the working directory
+    caplog.set_level(logging.INFO)  # pytest's handlers make the CLI's basicConfig a no-op
+    # 16 words at batch 4: 4 iterations an epoch, 1 epoch in the smoke config
+    args = ["-c", SMOKE, "--synthetic", "16", "--batch_size_per_gpu", "4", "--device", "cpu"]
+    first = main(args + ["--max_iters", "2"])
+    assert first["iteration"] == 2 and first["checkpoint"] == 2
+    assert all(np.isfinite(first["last"][k]) for k in ("loss", "mask_loss", "dino_loss"))
+    assert first["images_per_s"] > 0
+    ckpt = tmp_path / "saved_models" / "smoke_pretrain" / "ckpt_00000002.pt"
+    assert ckpt.is_file()
+    saved = torch.load(ckpt, weights_only=True)
+    assert saved["iteration"] == 2 and saved["opt_state"]["count"] == 2
+
+    second = main(args + ["--max_iters", "3"])  # resumes at 2: runs iteration 2
+    assert second["iteration"] == 3 and second["checkpoint"] == 3
+    assert np.isfinite(second["last"]["loss"])
+    log = (tmp_path / "workdir" / "smoke_pretrain" / "train.txt").read_text()
+    assert "resuming from checkpoint step 2" in log
+    assert "it 2 epoch 0" in log and "it 1 epoch 0" in log
