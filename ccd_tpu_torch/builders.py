@@ -1,7 +1,8 @@
-"""Config -> model builders shared by the entry points."""
+"""Config -> model builders and checkpoint loaders shared by the entry points."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple, Union
 
 import torch
@@ -93,3 +94,64 @@ def load_recognizer_params(path: str, model: CCDRecognizer) -> CCDRecognizer:
     sd = ckpt["net"] if isinstance(ckpt, dict) and "net" in ckpt else ckpt
     model.load_state_dict(clean_recognizer_state_dict(sd), strict=True)
     return model
+
+
+def is_torch_checkpoint(path: str) -> bool:
+    return os.path.isfile(path) and path.endswith((".pth", ".pt", ".bin"))
+
+
+def _latest_manager_file(path: str) -> Optional[str]:
+    """The newest ``ckpt_<step>.pt`` of a CheckpointManager directory, or None."""
+    from ccd_tpu_torch.checkpoints.torch_io import CheckpointManager
+    if not os.path.isdir(path):
+        return None
+    manager = CheckpointManager(path)
+    step = manager.latest_step()
+    return None if step is None else manager.path(step)
+
+
+def load_pretrained_backbone(path: str, model: CCDRecognizer,
+                             branch: str = "teacher") -> CCDRecognizer:
+    """Copy a pretraining checkpoint's ``branch`` backbone (the teacher, as
+    the reference hands it over, ``train_finetune.py:191-200``) into
+    ``model.backbone``, in place. ``path`` is a file or a CheckpointManager
+    directory of this package's ``train`` CLI (``pretrain_state_payload``:
+    ``{'student', 'teacher', ...}`` state_dicts), or a reference CCD ``.pth``
+    of the same layout with DDP ``module.`` prefixes; the backbone's names are
+    the reference's, so this is a prefix strip and a strict load."""
+    file = _latest_manager_file(path) or path
+    if not is_torch_checkpoint(file):
+        raise FileNotFoundError(f"{path}: neither a checkpoint directory nor a "
+                                ".pth/.pt/.bin file")
+    ckpt = torch.load(file, map_location="cpu", weights_only=True)
+    sd = ckpt[branch] if branch in ckpt else ckpt
+    prefix = "backbone."
+    backbone = {}
+    for name, value in sd.items():
+        name = name[len("module."):] if name.startswith("module.") else name
+        if name.startswith(prefix) and name != "backbone.cls_token":
+            backbone[name[len(prefix):]] = value
+    model.backbone.load_state_dict(backbone, strict=True)
+    return model
+
+
+def load_finetune_payload(path: str, map_location=None) -> Optional[dict]:
+    """A FULL finetune train-state payload ``{net, opt_state, iteration,
+    best_accuracy}`` (``finetune_state_payload``) from a payload file or the
+    newest checkpoint of a CheckpointManager directory: the
+    ``restart_from_checkpoint`` counterpart (``train_finetune.py:237-256``).
+    Returns None when ``path`` holds no such payload (a reference ``.pth``
+    holds weights only: :func:`load_recognizer_params` reads those)."""
+    import pickle
+
+    from ccd_tpu_torch.checkpoints.torch_io import load_payload
+    file = _latest_manager_file(path) or path
+    if not is_torch_checkpoint(file):
+        return None
+    try:
+        tree = load_payload(file, map_location)
+    except (pickle.UnpicklingError, RuntimeError):  # not a payload this package wrote
+        return None
+    if not isinstance(tree, dict) or not {"net", "opt_state", "iteration"} <= set(tree):
+        return None
+    return tree

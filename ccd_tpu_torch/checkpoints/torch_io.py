@@ -8,6 +8,11 @@ step divisible by it as well. Payloads are moved to the CPU before they are
 written and are read back with ``weights_only=True``, so a file holds only
 tensors, numbers, strings and containers of them. Saves are synchronous; a
 file appears under its final name only once it is complete.
+
+:func:`save_payload` / :func:`load_payload` write and read one such file at
+a fixed path, the counterpart of ``orbax_io.save_pytree`` /
+``restore_pytree``: the finetune loop keeps its best checkpoint there, out of
+the manager's retention.
 """
 
 from __future__ import annotations
@@ -29,6 +34,19 @@ def _to_cpu(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_cpu(v) for v in tree)
     return tree
+
+
+def save_payload(path: str, payload: Any) -> None:
+    """Write ``payload`` (moved to the CPU) to ``path``, replacing what was
+    there only once the new file is complete."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(_to_cpu(payload), tmp)
+    os.replace(tmp, path)
+
+
+def load_payload(path: str, map_location=None) -> Any:
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 class CheckpointManager:
@@ -53,9 +71,7 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, payload: Any) -> None:
-        tmp = f"{self.path(step)}.{os.getpid()}.tmp"
-        torch.save(_to_cpu(payload), tmp)
-        os.replace(tmp, self.path(step))
+        save_payload(self.path(step), payload)
         steps = self.all_steps()
         for old in steps[:-self.max_to_keep] if self.max_to_keep else []:
             if not (self.keep_period and old % self.keep_period == 0):
@@ -65,7 +81,7 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        return torch.load(self.path(step), map_location=map_location, weights_only=True)
+        return load_payload(self.path(step), map_location)
 
     def wait(self) -> None:
         """Saves are synchronous: nothing to wait for."""

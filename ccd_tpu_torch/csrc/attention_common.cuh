@@ -1,6 +1,6 @@
-// Pieces shared by the packed-attention kernels (forward and backward):
-// bf16 tensor-core fragments through `mma.sync.m16n8k16`, and the tile loader
-// that adds the qkv bias on the way into shared memory.
+// Pieces shared by the attention kernels (forward and backward): strided
+// operands, bf16 tensor-core fragments through `mma.sync.m16n8k16`, and the
+// tile loader that adds the qkv bias on the way into shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,9 +13,63 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use on sm_90
+constexpr int MAX_GRID_Z = 65535;      // the grid's z extent carries the batch
 constexpr int PAD = 8;    // bf16 elements of row padding in shared memory:
                           // rows 16 bytes apart modulo 128, so the fragment
                           // loads below are free of bank conflicts
+
+// One (B, H, S, D) operand of the attention kernels, D contiguous: element
+// (b, h, row, d) lies at ptr + b * batch + h * head + row * row_stride + d
+// (strides in elements). The packed layout (B, S, 3C) is three operands over
+// one buffer, row stride 3C and head offset D; folded (B*H, S, D) tensors
+// are H = 1 with row stride D; (B, S, H, D) tensors have row stride H * D
+// and head offset D. Rows must start 16 bytes apart and aligned, which the
+// callers check.
+template <typename T>
+struct Operand {
+    T* ptr;
+    long long batch, row_stride, head;
+    __device__ __forceinline__ T* at(int b, int h, size_t row) const {
+        return ptr + (size_t)b * batch + (size_t)h * head + row * row_stride;
+    }
+};
+
+// The operands of one forward call: q, k, v and the output, and a bias per
+// input operand (D values per head, head h at offset h * D) or null.
+template <typename T>
+struct FwdArgs {
+    Operand<const T> q, k, v;
+    const T* bq;
+    const T* bk;
+    const T* bv;
+    Operand<T> o;
+};
+
+// The operands of one backward call: the forward's inputs and biases, the
+// output's cotangent, the three gradients, two (B, H, S) fp32 scratch arrays
+// that the first kernel fills and the second reads, and the logits' scale.
+template <typename T>
+struct BwdArgs {
+    Operand<const T> q, k, v, dout;
+    const T* bq;
+    const T* bk;
+    const T* bv;
+    Operand<T> dq, dk, dv;
+    float* lse;
+    float* delta;
+    float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* head_bias(const T* bias, int h, int D) {
+    return bias ? bias + (size_t)h * D : nullptr;
+}
+
+// Operand from a host array of (batch, row, head) strides
+template <typename T>
+Operand<T> operand(T* ptr, const long long* s) {
+    return Operand<T>{ptr, s[0], s[1], s[2]};
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo

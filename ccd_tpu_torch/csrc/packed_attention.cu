@@ -1,27 +1,34 @@
-// Forward of packed multi-head attention for Hopper (sm_90a).
+// Forward of multi-head attention for Hopper (sm_90a), on strided operands.
 //
-// Replaces the Pallas kernel `_packed_fwd_kernel` behind `mha_packed_bias` /
-// `mha_packed` (ccd_tpu/ops/flash_attention.py). Per head h it computes
-//
-//     softmax((q + bq)(k + bk)^T * scale) (v + bv)
-//
-// straight from the un-biased qkv projection (B, S, 3C), channel order
-// [q h0..hH | k h0..hH | v h0..hH], plus its bias (3C,), and writes the head's
-// (S, D) slab at column h*D of the (B, S, C) output. No transposes in or out.
-// Logits and softmax are fp32; the probabilities are cast to the input type
-// before the second product, which accumulates in fp32.
+// Replaces two Pallas kernels of ccd_tpu/ops/flash_attention.py with one
+// device code:
+//   * `_packed_fwd_kernel` behind `mha_packed_bias` / `mha_packed` (K1-fwd):
+//     softmax((q + bq)(k + bk)^T * scale) (v + bv) per head straight from the
+//     un-biased qkv projection (B, S, 3C), channel order
+//     [q h0..hH | k h0..hH | v h0..hH], plus its bias (3C,), writing the
+//     head's (S, D) slab at column h*D of the (B, S, C) output;
+//   * `_fwd_kernel` behind `flash_attention` / `mha` (K1b-fwd): the same
+//     without bias on folded (B*H, S, D) tensors, or on (B, S, H, D) tensors
+//     read and written in place (no transposes, where the JAX `mha` moves
+//     q, k, v and the output through two transposes).
+// Each operand is a base pointer with a batch stride, a row stride and a
+// per-head column offset (attention_common.cuh::Operand); the two C entries
+// below differ only in how they build the operands. Logits and softmax are
+// fp32; the probabilities are cast to the input type before the second
+// product, which accumulates in fp32.
 //
 // What bounds it on an H100: bytes. At (B, S, C, H) = (288, 256, 384, 6) in
-// bf16 one call must read 288*256*1152*2 B = 169.9 MB and write 56.6 MB; at
-// 3.35 TB/s that is 0.068 ms, while its 4*S*S*D*H*B = 29.0 GFLOP take 0.029 ms
-// at 989 TFLOP/s. So the design keeps everything but qkv and the output out
-// of device memory: one block per (batch, head, tile of query rows) reads the
-// head's q/k/v columns by offset, adds the bias as the values are loaded,
-// keeps the head's K and V in shared memory, keeps the scores in registers
-// (online softmax over 64-key steps) and stores the output slab through
-// shared memory in 16-byte rows. The K and V columns of a head are read once
-// per query tile; the tiles of one head are neighbours in the grid, so the
-// repeats are served by the L2 cache.
+// bf16 one packed call must read 288*256*1152*2 B = 169.9 MB and write
+// 56.6 MB; at 3.35 TB/s that is 0.068 ms, while its 4*S*S*D*H*B = 29.0 GFLOP
+// take 0.029 ms at 989 TFLOP/s. A folded (768, 256, 64) call reads 75.5 MB
+// and writes 25.2 MB: 0.030 ms against 12.9 GFLOP, 0.013 ms. So the design
+// keeps everything but the inputs and the output out of device memory: one
+// block per (batch, head, tile of query rows) reads the head's q/k/v rows by
+// offset, adds the bias as the values are loaded, keeps the head's K and V in
+// shared memory, keeps the scores in registers (online softmax over 64-key
+// steps) and stores the output slab through shared memory in 16-byte rows.
+// The K and V rows of a head are read once per query tile; the tiles of one
+// head are neighbours in the grid, so the repeats are served by the L2 cache.
 //
 // Two kernels:
 //   * bf16: tensor cores through `mma.sync.m16n8k16`; each warp owns 16 query
@@ -41,8 +48,7 @@ constexpr int KEYS = 64;  // keys per online-softmax step (bf16 kernel)
 // dynamic shared memory (16 * WARPS + 2 * S) * (D + PAD) * 2 bytes.
 template <int D, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS)
-packed_attention_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
-                      bf16* __restrict__ out, int S, int H, float scale_log2e) {
+attention_fwd_bf16(const FwdArgs<bf16> a, int S, float scale_log2e) {
     constexpr int ROWS = 16 * WARPS;
     constexpr int LD = D + PAD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -51,15 +57,10 @@ packed_attention_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
     bf16* Vs = Ks + (size_t)S * LD;                // S x LD
 
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int C = H * D;
-    const size_t stride = 3 * (size_t)C;
-    const bf16* base = qkv + (size_t)b * S * stride + h * D;
-    const bf16* bq = bias ? bias + h * D : nullptr;
-    const bf16* bk = bias ? bias + C + h * D : nullptr;
-    const bf16* bv = bias ? bias + 2 * C + h * D : nullptr;
-    load_tile<D>(Qs, base + (size_t)tile * ROWS * stride, stride, ROWS, bq);
-    load_tile<D>(Ks, base + C, stride, S, bk);
-    load_tile<D>(Vs, base + 2 * C, stride, S, bv);
+    load_tile<D>(Qs, a.q.at(b, h, (size_t)tile * ROWS), a.q.row_stride, ROWS,
+                 head_bias(a.bq, h, D));
+    load_tile<D>(Ks, a.k.at(b, h, 0), a.k.row_stride, S, head_bias(a.bk, h, D));
+    load_tile<D>(Vs, a.v.at(b, h, 0), a.v.row_stride, S, head_bias(a.bv, h, D));
     __syncthreads();
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -146,9 +147,8 @@ packed_attention_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
 
     // Each warp overwrites its own 16 rows of the Q tile (only it read them,
     // and they are in registers now), then stores them 16 bytes a thread.
-    store_warp_tile<D>(Qs + warp * 16 * LD,
-                       out + ((size_t)b * S + (size_t)tile * ROWS + warp * 16) * C + h * D,
-                       C, o, inv0, inv1, lane);
+    store_warp_tile<D>(Qs + warp * 16 * LD, a.o.at(b, h, (size_t)tile * ROWS + warp * 16),
+                       a.o.row_stride, o, inv0, inv1, lane);
 }
 
 constexpr int F32_ROWS = 64;  // query rows (= threads) per block, fp32 kernel
@@ -158,25 +158,24 @@ constexpr int F32_STEP = 8;   // keys per softmax rescale
 // grid (S / 64, H, B), block 64 threads; thread r owns query row r of the tile.
 template <int D>
 __global__ void __launch_bounds__(F32_ROWS)
-packed_attention_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
-                     float* __restrict__ out, int S, int H, float scale) {
+attention_fwd_f32(const FwdArgs<float> a, int S, float scale) {
     __shared__ __align__(16) float Ks[F32_KEYS][D];
     __shared__ __align__(16) float Vs[F32_KEYS][D];
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int C = H * D;
-    const size_t stride = 3 * (size_t)C;
-    const float* base = qkv + (size_t)b * S * stride + h * D;
     const int row = tile * F32_ROWS + threadIdx.x;
+    const float* bq = head_bias(a.bq, h, D);
+    const float* bk = head_bias(a.bk, h, D);
+    const float* bv = head_bias(a.bv, h, D);
 
     float q[D], o[D];
     {
-        const float* qp = base + (size_t)row * stride;
+        const float* qp = a.q.at(b, h, row);
 #pragma unroll
         for (int d = 0; d < D; d += 4) {
             float4 v = __ldg(reinterpret_cast<const float4*>(qp + d));
-            if (bias != nullptr) {
-                float4 bq = __ldg(reinterpret_cast<const float4*>(bias + h * D + d));
-                v.x += bq.x; v.y += bq.y; v.z += bq.z; v.w += bq.w;
+            if (bq != nullptr) {
+                float4 bb = __ldg(reinterpret_cast<const float4*>(bq + d));
+                v.x += bb.x; v.y += bb.y; v.z += bb.z; v.w += bb.w;
             }
             q[d] = v.x; q[d + 1] = v.y; q[d + 2] = v.z; q[d + 3] = v.w;
             o[d] = o[d + 1] = o[d + 2] = o[d + 3] = 0.f;
@@ -188,14 +187,13 @@ packed_attention_f32(const float* __restrict__ qkv, const float* __restrict__ bi
         __syncthreads();  // the previous chunk is no longer read
         for (int i = threadIdx.x; i < F32_KEYS * (D / 4); i += F32_ROWS) {
             const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-            const float* kp = base + (size_t)(k0 + r) * stride + C + c;
-            float4 kv = __ldg(reinterpret_cast<const float4*>(kp));
-            float4 vv = __ldg(reinterpret_cast<const float4*>(kp + C));
-            if (bias != nullptr) {
-                float4 bk = __ldg(reinterpret_cast<const float4*>(bias + C + h * D + c));
-                float4 bv = __ldg(reinterpret_cast<const float4*>(bias + 2 * C + h * D + c));
-                kv.x += bk.x; kv.y += bk.y; kv.z += bk.z; kv.w += bk.w;
-                vv.x += bv.x; vv.y += bv.y; vv.z += bv.z; vv.w += bv.w;
+            float4 kv = __ldg(reinterpret_cast<const float4*>(a.k.at(b, h, k0 + r) + c));
+            float4 vv = __ldg(reinterpret_cast<const float4*>(a.v.at(b, h, k0 + r) + c));
+            if (bk != nullptr) {
+                float4 kb = __ldg(reinterpret_cast<const float4*>(bk + c));
+                float4 vb = __ldg(reinterpret_cast<const float4*>(bv + c));
+                kv.x += kb.x; kv.y += kb.y; kv.z += kb.z; kv.w += kb.w;
+                vv.x += vb.x; vv.y += vb.y; vv.z += vb.z; vv.w += vb.w;
             }
             *reinterpret_cast<float4*>(&Ks[r][c]) = kv;
             *reinterpret_cast<float4*>(&Vs[r][c]) = vv;
@@ -228,7 +226,7 @@ packed_attention_f32(const float* __restrict__ qkv, const float* __restrict__ bi
         }
     }
     const float inv = 1.f / l;
-    float* op = out + ((size_t)b * S + row) * C + h * D;
+    float* op = a.o.at(b, h, row);
 #pragma unroll
     for (int d = 0; d < D; d += 4) {
         *reinterpret_cast<float4*>(op + d) =
@@ -237,59 +235,94 @@ packed_attention_f32(const float* __restrict__ qkv, const float* __restrict__ bi
 }
 
 template <int D, int WARPS>
-int launch_bf16(const void* qkv, const void* bias, void* out, int B, int S, int H,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const FwdArgs<bf16>& a, int B, int S, int H, float scale,
+                cudaStream_t stream) {
     const size_t smem = (size_t)(16 * WARPS + 2 * S) * (D + PAD) * sizeof(bf16);
     if (smem > SMEM_LIMIT) return -2;
-    cudaError_t err = cudaFuncSetAttribute(packed_attention_bf16<D, WARPS>,
+    cudaError_t err = cudaFuncSetAttribute(attention_fwd_bf16<D, WARPS>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(S / (16 * WARPS), H, B);
-    packed_attention_bf16<D, WARPS><<<grid, 32 * WARPS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
-        static_cast<bf16*>(out), S, H, scale * 1.4426950408889634f);
+    attention_fwd_bf16<D, WARPS><<<grid, 32 * WARPS, smem, stream>>>(
+        a, S, scale * 1.4426950408889634f);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_f32(const void* qkv, const void* bias, void* out, int B, int S, int H,
-               float scale, cudaStream_t stream) {
+int launch_f32(const FwdArgs<float>& a, int B, int S, int H, float scale,
+               cudaStream_t stream) {
     dim3 grid(S / F32_ROWS, H, B);
-    packed_attention_f32<D><<<grid, F32_ROWS, 0, stream>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(bias),
-        static_cast<float*>(out), S, H, scale);
+    attention_fwd_f32<D><<<grid, F32_ROWS, 0, stream>>>(a, S, scale);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const FwdArgs<T>& a, int B, int S, int H, int D, float scale, cudaStream_t st) {
+    if (B > MAX_GRID_Z) return -3;
+    if constexpr (sizeof(T) == 2) {
+        // 128-row tiles read K and V half as often; 64-row tiles take any S % 64 == 0
+        const bool wide = (S % 128 == 0);
+        if (D == 64) return wide ? launch_bf16<64, 8>(a, B, S, H, scale, st)
+                                 : launch_bf16<64, 4>(a, B, S, H, scale, st);
+        if (D == 32) return wide ? launch_bf16<32, 8>(a, B, S, H, scale, st)
+                                 : launch_bf16<32, 4>(a, B, S, H, scale, st);
+    } else {
+        if (D == 64) return launch_f32<64>(a, B, S, H, scale, st);
+        if (D == 32) return launch_f32<32>(a, B, S, H, scale, st);
+    }
+    return -1;
+}
+
+template <typename T>
+int packed_forward(const void* qkv, const void* bias, void* out, int B, int S, int H, int D,
+                   float scale, cudaStream_t st) {
+    const long long C = (long long)H * D;
+    const T* x = static_cast<const T*>(qkv);
+    const T* bb = static_cast<const T*>(bias);
+    const long long in[3] = {S * 3 * C, 3 * C, D}, o[3] = {S * C, C, D};
+    FwdArgs<T> a{operand(x, in), operand(x + C, in), operand(x + 2 * C, in),
+                 bb, bb ? bb + C : nullptr, bb ? bb + 2 * C : nullptr,
+                 operand(static_cast<T*>(out), o)};
+    return launch(a, B, S, H, D, scale, st);
+}
+
+template <typename T>
+int strided_forward(const void* q, const void* k, const void* v, void* out,
+                    const long long* strides, int B, int S, int H, int D, float scale,
+                    cudaStream_t st) {
+    FwdArgs<T> a{operand(static_cast<const T*>(q), strides),
+                 operand(static_cast<const T*>(k), strides + 3),
+                 operand(static_cast<const T*>(v), strides + 6), nullptr, nullptr, nullptr,
+                 operand(static_cast<T*>(out), strides + 9)};
+    return launch(a, B, S, H, D, scale, st);
 }
 
 }  // namespace
 
-// qkv (B, S, 3*H*D) and out (B, S, H*D) contiguous, bias (3*H*D,) or null, all
-// of one type: is_bf16 = 1 for bfloat16, 0 for float32. D is 32 or 64 and S a
-// multiple of 64; the caller checks both. Launches on `stream`, does not
-// synchronise, and returns the CUDA error code of the launch (0 = success),
-// -1 for an unsupported D, -2 when one head's K and V exceed shared memory.
+// The entries below launch on `stream`, do not synchronise, and return the
+// CUDA error code of the launch (0 = success), -1 for an unsupported D, -2
+// when one head's K and V exceed shared memory, -3 when B exceeds the grid.
+// Tensors are of one type: is_bf16 = 1 for bfloat16, 0 for float32. D is 32
+// or 64 and S a multiple of 64; the caller checks both, and the alignment.
+
+// K1-fwd. qkv (B, S, 3*H*D) and out (B, S, H*D) contiguous, bias (3*H*D,) or null.
 extern "C" int packed_attention_forward(const void* qkv, const void* bias, void* out,
                                         int B, int S, int H, int D, int is_bf16,
                                         float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    int err;
-    if (is_bf16) {
-        // 128-row tiles read K and V half as often; 64-row tiles take any S % 64 == 0
-        const bool wide = (S % 128 == 0);
-        if (D == 64) {
-            err = wide ? launch_bf16<64, 8>(qkv, bias, out, B, S, H, scale, st)
-                       : launch_bf16<64, 4>(qkv, bias, out, B, S, H, scale, st);
-        } else if (D == 32) {
-            err = wide ? launch_bf16<32, 8>(qkv, bias, out, B, S, H, scale, st)
-                       : launch_bf16<32, 4>(qkv, bias, out, B, S, H, scale, st);
-        } else {
-            return -1;
-        }
-    } else {
-        if (D == 64) err = launch_f32<64>(qkv, bias, out, B, S, H, scale, st);
-        else if (D == 32) err = launch_f32<32>(qkv, bias, out, B, S, H, scale, st);
-        else return -1;
-    }
-    return err;
+    return is_bf16 ? packed_forward<bf16>(qkv, bias, out, B, S, H, D, scale, st)
+                   : packed_forward<float>(qkv, bias, out, B, S, H, D, scale, st);
+}
+
+// K1b-fwd. q, k, v and out are (B, H, S, D) operands given by their base
+// pointers and `strides`, twelve element strides: (batch, row, head) for q,
+// k, v and out in turn; D is contiguous. Folded (B*H, S, D) tensors are
+// H = 1; (B, S, H, D) tensors are read and written in place.
+extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* out,
+                                       const long long* strides, int B, int S, int H, int D,
+                                       int is_bf16, float scale, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return is_bf16 ? strided_forward<bf16>(q, k, v, out, strides, B, S, H, D, scale, st)
+                   : strided_forward<float>(q, k, v, out, strides, B, S, H, D, scale, st);
 }

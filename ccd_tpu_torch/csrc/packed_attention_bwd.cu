@@ -1,8 +1,12 @@
-// Backward of packed multi-head attention for Hopper (sm_90a).
+// Backward of multi-head attention for Hopper (sm_90a), on strided operands.
 //
-// Replaces the Pallas kernel `_packed_bwd_kernel` behind the custom VJP of
-// `mha_packed_bias` (ccd_tpu/ops/flash_attention.py). From the un-biased qkv
-// projection (B, S, 3C), its bias (3C,) and the output's cotangent dO
+// Replaces two Pallas kernels of ccd_tpu/ops/flash_attention.py with one
+// device code: `_packed_bwd_kernel` behind the custom VJP of
+// `mha_packed_bias` (K1-bwd), and `_bwd_kernel` behind the custom VJP of
+// `flash_attention` (K1b-bwd). Each operand is a base pointer with a batch
+// stride, a row stride and a per-head column offset
+// (attention_common.cuh::Operand). For the packed layout, from the un-biased
+// qkv projection (B, S, 3C), its bias (3C,) and the output's cotangent dO
 // (B, S, C) it recomputes per head, with q, k, v biased as in the forward,
 //
 //     P  = softmax(q k^T * scale)                  fp32
@@ -13,7 +17,10 @@
 // and writes dq | dk | dv at their column offsets of dqkv (B, S, 3C), which is
 // the cotangent of the projection's output as it stands: no transposes, and
 // nothing of size S x S ever reaches device memory. (The bias' cotangent is
-// the sum of dqkv over B and S, taken by the caller.)
+// the sum of dqkv over B and S, taken by the caller.) For folded (B*H, S, D)
+// or (B, S, H, D) tensors it reads q, k, v, dO and writes dq, dk, dv where
+// they lie, without bias; a folded (768, 256, 64) bf16 call moves
+// 7 * 25.2 MB = 176.2 MB, as much as the packed one at B = 128.
 //
 // What bounds it on an H100: bytes. At (B, S, C, H) = (128, 256, 384, 6) in
 // bf16 one call must read qkv (75.5 MB) and dO (25.2 MB) and write dqkv
@@ -69,10 +76,7 @@ __device__ __forceinline__ void zero_tile(float (&c)[8][4]) {
 // dynamic shared memory (2 * 64 + 2 * S) * (D + PAD) * 2 bytes.
 template <int D>
 __global__ void __launch_bounds__(2 * TILE)
-attention_bwd_dq_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
-                      const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                      float* __restrict__ lse2, float* __restrict__ delta,
-                      int S, int H, float scale) {
+attention_bwd_dq_bf16(const BwdArgs<bf16> a, int S) {
     constexpr int LD = D + PAD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // 64 x LD, later the dq tile
@@ -81,14 +85,12 @@ attention_bwd_dq_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
     bf16* Vs = Ks + (size_t)S * LD;                // S x LD
 
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int C = H * D;
-    const size_t stride = 3 * (size_t)C;
-    const size_t row0 = (size_t)b * S + (size_t)tile * TILE;
-    const bf16* base = qkv + (size_t)b * S * stride + h * D;
-    load_tile<D>(Qs, qkv + row0 * stride + h * D, stride, TILE, bias ? bias + h * D : nullptr);
-    load_tile<D>(dOs, dout + row0 * C + h * D, C, TILE, nullptr);
-    load_tile<D>(Ks, base + C, stride, S, bias ? bias + C + h * D : nullptr);
-    load_tile<D>(Vs, base + 2 * C, stride, S, bias ? bias + 2 * C + h * D : nullptr);
+    const size_t row0 = (size_t)tile * TILE;
+    const float scale = a.scale;
+    load_tile<D>(Qs, a.q.at(b, h, row0), a.q.row_stride, TILE, head_bias(a.bq, h, D));
+    load_tile<D>(dOs, a.dout.at(b, h, row0), a.dout.row_stride, TILE, nullptr);
+    load_tile<D>(Ks, a.k.at(b, h, 0), a.k.row_stride, S, head_bias(a.bk, h, D));
+    load_tile<D>(Vs, a.v.at(b, h, 0), a.v.row_stride, S, head_bias(a.bv, h, D));
     __syncthreads();
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -134,9 +136,9 @@ attention_bwd_dq_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
     const float L0 = m0 + log2f(l0), L1 = m1 + log2f(l1);      // log-sum-exp, base 2
     const float dl0 = quad_sum(a0) / l0, dl1 = quad_sum(a1) / l1;  // rowsum(dP * P)
     if (t == 0) {
-        const size_t r = ((size_t)b * H + h) * S + (size_t)tile * TILE + warp * 16 + g;
-        lse2[r] = L0; lse2[r + 8] = L1;
-        delta[r] = dl0; delta[r + 8] = dl1;
+        const size_t r = ((size_t)b * gridDim.y + h) * S + row0 + warp * 16 + g;
+        a.lse[r] = L0; a.lse[r + 8] = L1;
+        a.delta[r] = dl0; a.delta[r + 8] = dl1;
     }
 
     // pass 2: dq = dS k
@@ -160,8 +162,8 @@ attention_bwd_dq_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
     }
     // each warp stages its rows over its own 16 rows of the Q tile (only it
     // read them, and they are in registers now)
-    store_warp_tile<D>(Qs + warp * 16 * LD, dqkv + (row0 + warp * 16) * stride + h * D,
-                       stride, dq, 1.f, 1.f, lane);
+    store_warp_tile<D>(Qs + warp * 16 * LD, a.dq.at(b, h, row0 + warp * 16), a.dq.row_stride,
+                       dq, 1.f, 1.f, lane);
 }
 
 // grid (S / 64, H, B), block 128 threads, dynamic shared memory
@@ -169,10 +171,7 @@ attention_bwd_dq_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
 // kernel on the same stream and reads its two scratch arrays.
 template <int D>
 __global__ void __launch_bounds__(2 * TILE)
-attention_bwd_dkdv_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
-                        const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                        const float* __restrict__ lse2, const float* __restrict__ delta,
-                        int S, int H, float scale) {
+attention_bwd_dkdv_bf16(const BwdArgs<bf16> a, int S) {
     constexpr int LD = D + PAD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Kt = reinterpret_cast<bf16*>(smem_raw);  // 64 x LD, later the dk tile
@@ -183,19 +182,16 @@ attention_bwd_dkdv_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ b
     float* Ds = Ls + S;                                          // S
 
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int C = H * D;
-    const size_t stride = 3 * (size_t)C;
-    const size_t row0 = (size_t)b * S + (size_t)tile * TILE;
-    load_tile<D>(Kt, qkv + row0 * stride + C + h * D, stride, TILE,
-                 bias ? bias + C + h * D : nullptr);
-    load_tile<D>(Vt, qkv + row0 * stride + 2 * C + h * D, stride, TILE,
-                 bias ? bias + 2 * C + h * D : nullptr);
-    load_tile<D>(Qs, qkv + (size_t)b * S * stride + h * D, stride, S,
-                 bias ? bias + h * D : nullptr);
-    load_tile<D>(dOs, dout + (size_t)b * S * C + h * D, C, S, nullptr);
+    const size_t row0 = (size_t)tile * TILE;
+    const float scale = a.scale;
+    load_tile<D>(Kt, a.k.at(b, h, row0), a.k.row_stride, TILE, head_bias(a.bk, h, D));
+    load_tile<D>(Vt, a.v.at(b, h, row0), a.v.row_stride, TILE, head_bias(a.bv, h, D));
+    load_tile<D>(Qs, a.q.at(b, h, 0), a.q.row_stride, S, head_bias(a.bq, h, D));
+    load_tile<D>(dOs, a.dout.at(b, h, 0), a.dout.row_stride, S, nullptr);
+    const size_t note0 = ((size_t)b * gridDim.y + h) * S;
     for (int i = threadIdx.x; i < S; i += blockDim.x) {
-        Ls[i] = lse2[((size_t)b * H + h) * S + i];
-        Ds[i] = delta[((size_t)b * H + h) * S + i];
+        Ls[i] = a.lse[note0 + i];
+        Ds[i] = a.delta[note0 + i];
     }
     __syncthreads();
 
@@ -235,9 +231,10 @@ attention_bwd_dkdv_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ b
         mma_p_b<D>(dv, st, dOs + (size_t)q0 * LD, lane);   // dv += P^T dO
         mma_p_b<D>(dk, dpt, Qs + (size_t)q0 * LD, lane);   // dk += dS^T q
     }
-    bf16* drow = dqkv + (row0 + warp * 16) * stride + h * D;
-    store_warp_tile<D>(Kt + warp * 16 * LD, drow + C, stride, dk, 1.f, 1.f, lane);
-    store_warp_tile<D>(Vt + warp * 16 * LD, drow + 2 * C, stride, dv, 1.f, 1.f, lane);
+    store_warp_tile<D>(Kt + warp * 16 * LD, a.dk.at(b, h, row0 + warp * 16), a.dk.row_stride,
+                       dk, 1.f, 1.f, lane);
+    store_warp_tile<D>(Vt + warp * 16 * LD, a.dv.at(b, h, row0 + warp * 16), a.dv.row_stride,
+                       dv, 1.f, 1.f, lane);
 }
 
 constexpr int F32_KEYS = 32;     // keys per shared-memory chunk, dq kernel
@@ -274,37 +271,41 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* s
     }
 }
 
+// D floats from registers to one row of device memory
+template <int D>
+__device__ __forceinline__ void store_row_f32(float* dst, const float (&x)[D]) {
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+        *reinterpret_cast<float4*>(dst + d) = make_float4(x[d], x[d + 1], x[d + 2], x[d + 3]);
+    }
+}
+
 // grid (S / 64, H, B), block 64 threads; thread r owns query row r of the
 // tile: q and dq in registers, its dO row in shared memory (row stride D + 1,
 // so the threads' rows fall into different banks).
 template <int D>
 __global__ void __launch_bounds__(TILE)
-attention_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
-                     const float* __restrict__ dout, float* __restrict__ dqkv,
-                     float* __restrict__ lse, float* __restrict__ delta,
-                     int S, int H, float scale) {
+attention_bwd_dq_f32(const BwdArgs<float> a, int S) {
     __shared__ __align__(16) float Ks[F32_KEYS * D];
     __shared__ __align__(16) float Vs[F32_KEYS * D];
     __shared__ float dOs[TILE * (D + 1)];
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int C = H * D;
-    const size_t stride = 3 * (size_t)C;
-    const size_t row0 = (size_t)b * S + (size_t)tile * TILE;
-    const float* base = qkv + (size_t)b * S * stride + h * D;
-    const float* bk = bias ? bias + C + h * D : nullptr;
-    const float* bv = bias ? bias + 2 * C + h * D : nullptr;
+    const size_t row0 = (size_t)tile * TILE;
+    const float scale = a.scale;
+    const float* bk = head_bias(a.bk, h, D);
+    const float* bv = head_bias(a.bv, h, D);
 
     float q[D];
-    load_row_f32<D>(q, qkv + (row0 + threadIdx.x) * stride + h * D, bias ? bias + h * D : nullptr);
-    load_rows_f32<D>(dOs, D + 1, dout + row0 * C + h * D, C, TILE, nullptr);
+    load_row_f32<D>(q, a.q.at(b, h, row0 + threadIdx.x), head_bias(a.bq, h, D));
+    load_rows_f32<D>(dOs, D + 1, a.dout.at(b, h, row0), a.dout.row_stride, TILE, nullptr);
     const float* dO = dOs + threadIdx.x * (D + 1);
 
     // pass 1: the row's maximum, sum(e) and sum(e * dP), online
-    float m = -INFINITY, l = 0.f, a = 0.f;
+    float m = -INFINITY, l = 0.f, acc = 0.f;
     for (int k0 = 0; k0 < S; k0 += F32_KEYS) {
         __syncthreads();  // the previous chunk is no longer read (and dOs is written)
-        load_rows_f32<D>(Ks, D, base + (size_t)k0 * stride + C, stride, F32_KEYS, bk);
-        load_rows_f32<D>(Vs, D, base + (size_t)k0 * stride + 2 * C, stride, F32_KEYS, bv);
+        load_rows_f32<D>(Ks, D, a.k.at(b, h, k0), a.k.row_stride, F32_KEYS, bk);
+        load_rows_f32<D>(Vs, D, a.v.at(b, h, k0), a.v.row_stride, F32_KEYS, bv);
         __syncthreads();
         for (int j = 0; j < F32_KEYS; ++j) {
             float s = 0.f, dp = 0.f;
@@ -318,12 +319,13 @@ attention_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ bi
             const float alpha = expf(m - mn), e = expf(s - mn);
             m = mn;
             l = fmaf(l, alpha, e);
-            a = fmaf(a, alpha, e * dp);
+            acc = fmaf(acc, alpha, e * dp);
         }
     }
-    const float L = m + logf(l), dl = a / l;
-    lse[((size_t)b * H + h) * S + (size_t)tile * TILE + threadIdx.x] = L;
-    delta[((size_t)b * H + h) * S + (size_t)tile * TILE + threadIdx.x] = dl;
+    const float L = m + logf(l), dl = acc / l;
+    const size_t note = ((size_t)b * gridDim.y + h) * S + row0 + threadIdx.x;
+    a.lse[note] = L;
+    a.delta[note] = dl;
 
     // pass 2: dq = dS k
     float dq[D];
@@ -331,8 +333,8 @@ attention_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ bi
     for (int d = 0; d < D; ++d) dq[d] = 0.f;
     for (int k0 = 0; k0 < S; k0 += F32_KEYS) {
         __syncthreads();
-        load_rows_f32<D>(Ks, D, base + (size_t)k0 * stride + C, stride, F32_KEYS, bk);
-        load_rows_f32<D>(Vs, D, base + (size_t)k0 * stride + 2 * C, stride, F32_KEYS, bv);
+        load_rows_f32<D>(Ks, D, a.k.at(b, h, k0), a.k.row_stride, F32_KEYS, bk);
+        load_rows_f32<D>(Vs, D, a.v.at(b, h, k0), a.v.row_stride, F32_KEYS, bv);
         __syncthreads();
         for (int j = 0; j < F32_KEYS; ++j) {
             float s = 0.f, dp = 0.f;
@@ -346,11 +348,7 @@ attention_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ bi
             for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, Ks[j * D + d], dq[d]);
         }
     }
-    float* out = dqkv + (row0 + threadIdx.x) * stride + h * D;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-        *reinterpret_cast<float4*>(out + d) = make_float4(dq[d], dq[d + 1], dq[d + 2], dq[d + 3]);
-    }
+    store_row_f32<D>(a.dq.at(b, h, row0 + threadIdx.x), dq);
 }
 
 // grid (S / 64, H, B), block 64 threads; thread r owns key row r of the
@@ -358,39 +356,34 @@ attention_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ bi
 // registers; queries stream through shared memory 16 at a time.
 template <int D>
 __global__ void __launch_bounds__(TILE)
-attention_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
-                       const float* __restrict__ dout, float* __restrict__ dqkv,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       int S, int H, float scale) {
+attention_bwd_dkdv_f32(const BwdArgs<float> a, int S) {
     __shared__ float Kt[TILE * (D + 1)];
     __shared__ float Vt[TILE * (D + 1)];
     __shared__ __align__(16) float Qc[F32_QUERIES * D];
     __shared__ __align__(16) float dOc[F32_QUERIES * D];
     __shared__ float Lc[F32_QUERIES], Dc[F32_QUERIES];
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int C = H * D;
-    const size_t stride = 3 * (size_t)C;
-    const size_t row0 = (size_t)b * S + (size_t)tile * TILE;
-    load_rows_f32<D>(Kt, D + 1, qkv + row0 * stride + C + h * D, stride, TILE,
-                     bias ? bias + C + h * D : nullptr);
-    load_rows_f32<D>(Vt, D + 1, qkv + row0 * stride + 2 * C + h * D, stride, TILE,
-                     bias ? bias + 2 * C + h * D : nullptr);
+    const size_t row0 = (size_t)tile * TILE;
+    const float scale = a.scale;
+    load_rows_f32<D>(Kt, D + 1, a.k.at(b, h, row0), a.k.row_stride, TILE,
+                     head_bias(a.bk, h, D));
+    load_rows_f32<D>(Vt, D + 1, a.v.at(b, h, row0), a.v.row_stride, TILE,
+                     head_bias(a.bv, h, D));
     const float* k = Kt + threadIdx.x * (D + 1);
     const float* v = Vt + threadIdx.x * (D + 1);
-    const float* bq = bias ? bias + h * D : nullptr;
+    const float* bq = head_bias(a.bq, h, D);
+    const size_t note0 = ((size_t)b * gridDim.y + h) * S;
 
     float dk[D], dv[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) { dk[d] = 0.f; dv[d] = 0.f; }
     for (int q0 = 0; q0 < S; q0 += F32_QUERIES) {
         __syncthreads();  // the previous chunk is no longer read (and Kt, Vt are written)
-        load_rows_f32<D>(Qc, D, qkv + ((size_t)b * S + q0) * stride + h * D, stride,
-                         F32_QUERIES, bq);
-        load_rows_f32<D>(dOc, D, dout + ((size_t)b * S + q0) * C + h * D, C, F32_QUERIES,
-                         nullptr);
+        load_rows_f32<D>(Qc, D, a.q.at(b, h, q0), a.q.row_stride, F32_QUERIES, bq);
+        load_rows_f32<D>(dOc, D, a.dout.at(b, h, q0), a.dout.row_stride, F32_QUERIES, nullptr);
         if (threadIdx.x < F32_QUERIES) {
-            Lc[threadIdx.x] = lse[((size_t)b * H + h) * S + q0 + threadIdx.x];
-            Dc[threadIdx.x] = delta[((size_t)b * H + h) * S + q0 + threadIdx.x];
+            Lc[threadIdx.x] = a.lse[note0 + q0 + threadIdx.x];
+            Dc[threadIdx.x] = a.delta[note0 + q0 + threadIdx.x];
         }
         __syncthreads();
         for (int i = 0; i < F32_QUERIES; ++i) {
@@ -409,20 +402,12 @@ attention_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict__ 
             }
         }
     }
-    float* out = dqkv + (row0 + threadIdx.x) * stride + h * D;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-        *reinterpret_cast<float4*>(out + C + d) =
-            make_float4(dk[d], dk[d + 1], dk[d + 2], dk[d + 3]);
-        *reinterpret_cast<float4*>(out + 2 * C + d) =
-            make_float4(dv[d], dv[d + 1], dv[d + 2], dv[d + 3]);
-    }
+    store_row_f32<D>(a.dk.at(b, h, row0 + threadIdx.x), dk);
+    store_row_f32<D>(a.dv.at(b, h, row0 + threadIdx.x), dv);
 }
 
 template <int D>
-int launch_bf16(const void* qkv, const void* bias, const void* dout, void* dqkv,
-                float* lse, float* delta, int B, int S, int H, float scale,
-                cudaStream_t stream) {
+int launch_bf16(const BwdArgs<bf16>& a, int B, int S, int H, cudaStream_t stream) {
     const size_t smem_dq = (size_t)(2 * TILE + 2 * S) * (D + PAD) * sizeof(bf16);
     const size_t smem_dkdv = smem_dq + 2 * (size_t)S * sizeof(float);
     if (smem_dkdv > SMEM_LIMIT) return -2;
@@ -434,55 +419,102 @@ int launch_bf16(const void* qkv, const void* bias, const void* dout, void* dqkv,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(S / TILE, H, B);
-    attention_bwd_dq_bf16<D><<<grid, 2 * TILE, smem_dq, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
-        static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), lse, delta, S, H, scale);
+    attention_bwd_dq_bf16<D><<<grid, 2 * TILE, smem_dq, stream>>>(a, S);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    attention_bwd_dkdv_bf16<D><<<grid, 2 * TILE, smem_dkdv, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
-        static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), lse, delta, S, H, scale);
+    attention_bwd_dkdv_bf16<D><<<grid, 2 * TILE, smem_dkdv, stream>>>(a, S);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_f32(const void* qkv, const void* bias, const void* dout, void* dqkv,
-               float* lse, float* delta, int B, int S, int H, float scale,
-               cudaStream_t stream) {
+int launch_f32(const BwdArgs<float>& a, int B, int S, int H, cudaStream_t stream) {
     dim3 grid(S / TILE, H, B);
-    attention_bwd_dq_f32<D><<<grid, TILE, 0, stream>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(bias),
-        static_cast<const float*>(dout), static_cast<float*>(dqkv), lse, delta, S, H, scale);
+    attention_bwd_dq_f32<D><<<grid, TILE, 0, stream>>>(a, S);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    attention_bwd_dkdv_f32<D><<<grid, TILE, 0, stream>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(bias),
-        static_cast<const float*>(dout), static_cast<float*>(dqkv), lse, delta, S, H, scale);
+    attention_bwd_dkdv_f32<D><<<grid, TILE, 0, stream>>>(a, S);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const BwdArgs<T>& a, int B, int S, int H, int D, cudaStream_t st) {
+    if (B > MAX_GRID_Z) return -3;
+    if constexpr (sizeof(T) == 2) {
+        if (D == 64) return launch_bf16<64>(a, B, S, H, st);
+        if (D == 32) return launch_bf16<32>(a, B, S, H, st);
+    } else {
+        if (D == 64) return launch_f32<64>(a, B, S, H, st);
+        if (D == 32) return launch_f32<32>(a, B, S, H, st);
+    }
+    return -1;
+}
+
+template <typename T>
+int packed_backward(const void* qkv, const void* bias, const void* dout, void* dqkv,
+                    void* lse, void* delta, int B, int S, int H, int D, float scale,
+                    cudaStream_t st) {
+    const long long C = (long long)H * D;
+    const T* x = static_cast<const T*>(qkv);
+    const T* bb = static_cast<const T*>(bias);
+    T* dx = static_cast<T*>(dqkv);
+    const long long in[3] = {S * 3 * C, 3 * C, D}, o[3] = {S * C, C, D};
+    BwdArgs<T> a{operand(x, in), operand(x + C, in), operand(x + 2 * C, in),
+                 operand(static_cast<const T*>(dout), o),
+                 bb, bb ? bb + C : nullptr, bb ? bb + 2 * C : nullptr,
+                 operand(dx, in), operand(dx + C, in), operand(dx + 2 * C, in),
+                 static_cast<float*>(lse), static_cast<float*>(delta), scale};
+    return launch(a, B, S, H, D, st);
+}
+
+template <typename T>
+int strided_backward(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                     void* dk, void* dv, void* lse, void* delta, const long long* strides,
+                     int B, int S, int H, int D, float scale, cudaStream_t st) {
+    BwdArgs<T> a{operand(static_cast<const T*>(q), strides),
+                 operand(static_cast<const T*>(k), strides + 3),
+                 operand(static_cast<const T*>(v), strides + 6),
+                 operand(static_cast<const T*>(dout), strides + 9),
+                 nullptr, nullptr, nullptr,
+                 operand(static_cast<T*>(dq), strides + 12),
+                 operand(static_cast<T*>(dk), strides + 15),
+                 operand(static_cast<T*>(dv), strides + 18),
+                 static_cast<float*>(lse), static_cast<float*>(delta), scale};
+    return launch(a, B, S, H, D, st);
 }
 
 }  // namespace
 
-// qkv and dqkv (B, S, 3*H*D), dout (B, S, H*D) contiguous, bias (3*H*D,) or
-// null, all of one type: is_bf16 = 1 for bfloat16, 0 for float32. lse and
-// delta are (B, H, S) fp32 scratch that the first kernel fills and the second
-// reads. D is 32 or 64 and S a multiple of 64; the caller checks both.
-// Launches both kernels on `stream`, does not synchronise, and returns the
-// CUDA error code of the launches (0 = success), -1 for an unsupported D, -2
-// when one head's rows exceed shared memory.
+// The entries below launch both kernels on `stream`, do not synchronise, and
+// return the CUDA error code of the launches (0 = success), -1 for an
+// unsupported D, -2 when one head's rows exceed shared memory, -3 when B
+// exceeds the grid. Tensors are of one type: is_bf16 = 1 for bfloat16, 0 for
+// float32. lse and delta are (B, H, S) fp32 scratch that the first kernel
+// fills and the second reads. D is 32 or 64 and S a multiple of 64; the
+// caller checks both, and the alignment.
+
+// K1-bwd. qkv and dqkv (B, S, 3*H*D), dout (B, S, H*D) contiguous, bias
+// (3*H*D,) or null.
 extern "C" int packed_attention_backward(const void* qkv, const void* bias, const void* dout,
                                          void* dqkv, void* lse, void* delta,
                                          int B, int S, int H, int D, int is_bf16,
                                          float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    float* l = static_cast<float*>(lse);
-    float* dl = static_cast<float*>(delta);
-    if (is_bf16) {
-        if (D == 64) return launch_bf16<64>(qkv, bias, dout, dqkv, l, dl, B, S, H, scale, st);
-        if (D == 32) return launch_bf16<32>(qkv, bias, dout, dqkv, l, dl, B, S, H, scale, st);
-        return -1;
-    }
-    if (D == 64) return launch_f32<64>(qkv, bias, dout, dqkv, l, dl, B, S, H, scale, st);
-    if (D == 32) return launch_f32<32>(qkv, bias, dout, dqkv, l, dl, B, S, H, scale, st);
-    return -1;
+    return is_bf16
+        ? packed_backward<bf16>(qkv, bias, dout, dqkv, lse, delta, B, S, H, D, scale, st)
+        : packed_backward<float>(qkv, bias, dout, dqkv, lse, delta, B, S, H, D, scale, st);
+}
+
+// K1b-bwd. q, k, v, dout, dq, dk and dv are (B, H, S, D) operands given by
+// their base pointers and `strides`, twenty-one element strides: (batch, row,
+// head) for each in that order; D is contiguous.
+extern "C" int flash_attention_backward(const void* q, const void* k, const void* v,
+                                        const void* dout, void* dq, void* dk, void* dv,
+                                        void* lse, void* delta, const long long* strides,
+                                        int B, int S, int H, int D, int is_bf16, float scale,
+                                        void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return is_bf16 ? strided_backward<bf16>(q, k, v, dout, dq, dk, dv, lse, delta, strides,
+                                            B, S, H, D, scale, st)
+                   : strided_backward<float>(q, k, v, dout, dq, dk, dv, lse, delta, strides,
+                                             B, S, H, D, scale, st);
 }

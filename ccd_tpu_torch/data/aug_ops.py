@@ -1,11 +1,13 @@
-"""Batched, on-device image ops of the severity-5 pretraining augmentation.
+"""Batched, on-device image ops of the severity-5 pretraining augmentation
+and the finetune path's staged chain.
 
 Counterpart of ``ccd_tpu/data/aug_ops.py`` for the ops that
-``photometric_augment(severity=5)`` reaches: the 21 ``ARITHMETIC_OPS``, the 9
-``COLOR_OPS``, the blur family (``op_sharpen`` and ``op_gaussian_blur``,
-``op_average_blur``, ``op_median_blur``, ``op_motion_blur``,
-``op_bilateral_blur``), the 8 ``CONTRAST_OPS`` and the 4 ``WEATHER_OPS``,
-with the helpers they use. Images are (B, H, W, 3) float [0, 1] NHWC; every
+``photometric_augment(severity=5)`` and ``supervised_augment`` reach: the 21
+``ARITHMETIC_OPS``, the 9 ``COLOR_OPS`` and ``op_multiply_brightness``, the
+blur family (``op_sharpen`` and ``op_gaussian_blur``, ``op_average_blur``,
+``op_median_blur``, ``op_motion_blur``, ``op_bilateral_blur``), the 8
+``CONTRAST_OPS``, the 4 ``WEATHER_OPS`` and ``op_channel_shuffle``, with the
+helpers they use. Images are (B, H, W, 3) float [0, 1] NHWC; every
 op draws its parameters per sample from a key object
 (``ccd_tpu_torch/data/random.py``) with the same calls, in the same order and
 shapes, as the JAX op, then applies them with the same arithmetic. The
@@ -1073,6 +1075,21 @@ def op_rain(key, x):
 
 
 WEATHER_OPS: List[Op] = [op_fog, op_clouds, op_snowflakes, op_rain]
+
+# ------------------------------------------------------------------ misc
+
+def op_channel_shuffle(key, x, p=0.35):
+    """iaa.ChannelShuffle(0.35): with prob p permute the RGB channels, the
+    permutation an argsort of uniforms. Applied as a gather, which moves the
+    pixel values exactly (the JAX op multiplies by a one-hot matrix at
+    HIGHEST precision for the same reason)."""
+    k1, k2 = key.split(2)
+    b = x.shape[0]
+    perm = torch.argsort(k1.uniform((b, 3)), dim=-1, stable=True)      # (B, 3)
+    shuffled = torch.gather(x, -1, perm[:, None, None, :].expand(x.shape))
+    gate = k2.bernoulli(p, (b, 1, 1, 1))
+    return torch.where(gate, shuffled, x)
+
 
 _TABLES = {"lab_white": _LAB_WHITE, "dct8": _DCT8, "q_luma": _Q_LUMA, "q_chroma": _Q_CHROMA,
            "edge": _EDGE_KERNEL, "ded_cells": _DED_CELLS_N,

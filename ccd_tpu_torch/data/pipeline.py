@@ -188,31 +188,44 @@ def device_chunks(batches: Iterator[tuple], k_steps: int, stage: Callable,
         yield item
 
 
+def _stage(arrays: Sequence[np.ndarray], device: torch.device,
+           stream: Optional["torch.cuda.Stream"]):
+    """Host arrays -> (tensors on ``device``..., ready event). For a card:
+    pinned and copied without blocking on ``stream``; the consumer makes its
+    stream wait on the returned event before it reads the tensors
+    (:func:`wait_for_chunk`). For the CPU the event is None."""
+    tensors = [torch.from_numpy(a) for a in arrays]
+    if device.type != "cuda":
+        return (*[t.to(device) for t in tensors], None)
+    with torch.cuda.stream(stream):
+        tensors = [t.pin_memory().to(device, non_blocking=True) for t in tensors]
+        ready = torch.cuda.Event()
+        ready.record()
+    return (*tensors, ready)
+
+
 def stage_pretrain_chunk(chunk: Sequence[tuple], device: torch.device,
                          stream: Optional["torch.cuda.Stream"] = None):
     """K (image, mask) batches -> ((K, B, H, W, 3) uint8, (K, B, H, W) uint8,
-    ready event) on ``device``. For a card: stacked on the host, pinned and
-    copied without blocking on ``stream``; the consumer makes its stream wait
-    on the returned event before it reads the tensors
-    (:func:`wait_for_chunk`). For the CPU the event is None."""
-    raws = torch.from_numpy(np.stack([c[0] for c in chunk]))
-    masks = torch.from_numpy(np.stack([c[1] for c in chunk]).astype(np.uint8))
-    if device.type != "cuda":
-        return raws.to(device), masks.to(device), None
-    with torch.cuda.stream(stream):
-        raws = raws.pin_memory().to(device, non_blocking=True)
-        masks = masks.pin_memory().to(device, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-    return raws, masks, ready
+    ready event) on ``device``, staged by :func:`_stage`."""
+    return _stage((np.stack([c[0] for c in chunk]),
+                   np.stack([c[1] for c in chunk]).astype(np.uint8)), device, stream)
 
 
-def wait_for_chunk(raws: torch.Tensor, masks: torch.Tensor, ready) -> None:
+def stage_finetune_chunk(chunk: Sequence[tuple], device: torch.device,
+                         stream: Optional["torch.cuda.Stream"] = None):
+    """K (images, targets, texts) batches -> ((K, B, H, W, 3) uint8,
+    (K, B, T) int32, ready event) on ``device``, staged by :func:`_stage`."""
+    return _stage((np.stack([c[0] for c in chunk]),
+                   np.stack([c[1] for c in chunk]).astype(np.int32)), device, stream)
+
+
+def wait_for_chunk(first: torch.Tensor, second: torch.Tensor, ready) -> None:
     """Order the current stream after a staged chunk's copies, and tell the
     allocator that the current stream uses the chunk's memory."""
     if ready is None:
         return
-    current = torch.cuda.current_stream(raws.device)
+    current = torch.cuda.current_stream(first.device)
     current.wait_event(ready)
-    raws.record_stream(current)
-    masks.record_stream(current)
+    first.record_stream(current)
+    second.record_stream(current)

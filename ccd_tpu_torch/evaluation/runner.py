@@ -10,7 +10,7 @@ batch sizes exists to bound recompiles and has no counterpart here.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,31 +58,48 @@ def evaluate_benchmarks(model, test_roots: Sequence[str],
                         charset_type: str = "DICT90",
                         case_sensitive: bool = False,
                         num_workers: int = 4,
+                        names: Optional[Sequence[str]] = None,
                         test_speed: bool = False,
+                        loader_cache: Optional[dict] = None,
                         ) -> Tuple[List[Dict[str, float]], float]:
     """Run the 11-benchmark-style eval; returns (per-set metrics, weighted acc).
 
     One process evaluates every benchmark in full (sharding over processes
-    arrives with multi-GPU evaluation).
+    arrives with multi-GPU evaluation). ``names`` label the results in place
+    of the roots. ``loader_cache``: pass the same dict across periodic
+    evaluations (the finetune loop does) to reuse each benchmark's dataset
+    and loader, one per (root, batch, max_seq_len, charset, workers): the
+    LMDB is opened and scanned once per run instead of once per evaluation.
+    The model decodes in evaluation mode and is left in the mode it was
+    found in.
     """
+    was_training = model.training
     model.eval()
-    convertor = AttnConvertor(dict_type=charset_type, max_seq_len=max_seq_len,
-                              with_unknown=True)
-    predict = make_predict_fn(model, convertor, test_speed)
-    results = []
-    total_acc = 0.0
-    total_words = 0.0
-    for root in test_roots:
-        ds = build_dataset(SupervisedDataset, [root], is_training=False,
-                           convertor=convertor, max_seq_len=max_seq_len)
-        loader = DataLoader(ds, batch_size=batch_size, shuffle=False,
-                            drop_last=False, num_workers=num_workers)
-        acc = TextAccuracy(case_sensitive=case_sensitive)
-        acc.compute(predict, ((images, texts) for images, _targets, texts in loader))
-        res = acc.result()
-        res["name"] = str(root)
-        results.append(res)
-        total_acc += res["cwr"] * res["words"]
-        total_words += res["words"]
+    try:
+        convertor = AttnConvertor(dict_type=charset_type, max_seq_len=max_seq_len,
+                                  with_unknown=True)
+        predict = make_predict_fn(model, convertor, test_speed)
+        results = []
+        total_acc = 0.0
+        total_words = 0.0
+        for i, root in enumerate(test_roots):
+            key = (str(root), batch_size, max_seq_len, charset_type, num_workers)
+            loader = None if loader_cache is None else loader_cache.get(key)
+            if loader is None:
+                ds = build_dataset(SupervisedDataset, [root], is_training=False,
+                                   convertor=convertor, max_seq_len=max_seq_len)
+                loader = DataLoader(ds, batch_size=batch_size, shuffle=False,
+                                    drop_last=False, num_workers=num_workers)
+                if loader_cache is not None:
+                    loader_cache[key] = loader
+            acc = TextAccuracy(case_sensitive=case_sensitive)
+            acc.compute(predict, ((images, texts) for images, _targets, texts in loader))
+            res = acc.result()
+            res["name"] = names[i] if names else str(root)
+            results.append(res)
+            total_acc += res["cwr"] * res["words"]
+            total_words += res["words"]
+    finally:
+        model.train(was_training)
     weighted = total_acc / max(total_words, 1.0)
     return results, weighted

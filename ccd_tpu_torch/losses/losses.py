@@ -11,6 +11,8 @@ Counterpart of ``ccd_tpu/losses/losses.py``. Parity targets:
     the reference's ``.mean()`` over the flattened valid rows.
   * :func:`dino_char_loss_fused` — the same loss through the fused
     cross-entropy kernel (:mod:`ccd_tpu_torch.ops.fused_dino_ce`).
+  * :func:`tf_loss` — the finetune path's teacher-forced CE
+    (``train_finetune.py:276-282``).
 """
 
 from __future__ import annotations
@@ -111,3 +113,19 @@ def dino_center_update(center: torch.Tensor, teacher_logits: torch.Tensor,
         0, keepdim=True, dtype=torch.float32)
     count = w2.float().sum().clamp_min(1.0)
     return center * momentum + (total / count) * (1.0 - momentum)
+
+
+def tf_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int) -> torch.Tensor:
+    """Teacher-forcing CE (``ccd_tpu/losses/losses.py::tf_loss``): drop the
+    last output and the first target, mean over the non-PAD targets.
+
+    logits: (N, T, C-1); targets: (N, T) with BOS first. A target id outside
+    the classifier's range (PAD is one past it) is clipped for the gather and
+    masked out by ``ignore_index``."""
+    out = logits[:, :-1].float()
+    tgt = targets[:, 1:]
+    mask = (tgt != ignore_index).float()
+    logp = torch.log_softmax(out, dim=-1)
+    safe = tgt.clamp(0, out.shape[-1] - 1).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ccd_tpu_torch.models.layers import (BatchNorm, Conv2d, ConvTranspose2d, Dense,
+from ccd_tpu_torch.models.layers import (BatchNorm, Conv2d, ConvTranspose2d, Dense, Dropout,
                                          init_dense_layers, trunc_normal_)
 from ccd_tpu_torch.ops.activations import gelu as _gelu
 
@@ -147,8 +147,9 @@ class MlpEncoder(nn.Module):
         super().__init__()
         self.fc1 = Dense(in_features, hidden_features, dtype=dtype)
         self.fc2 = Dense(hidden_features, out_features, dtype=dtype)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(_gelu(self.fc1(x)))
-        return self.drop(self.fc2(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.drop(_gelu(self.fc1(x)), generator)
+        return self.drop(self.fc2(x), generator)

@@ -34,6 +34,36 @@ def trunc_normal_(t: torch.Tensor, std: float,
     return t
 
 
+def keep_mask(x: torch.Tensor, rate: float, shape, generator: Optional[torch.Generator]
+              ) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep-mask of ``shape`` in ``x``'s type, drawn from
+    ``generator`` on ``x``'s device (``uniform < 1 - rate``, as
+    ``jax.random.bernoulli`` draws Flax's keep-mask): the one source of dropout
+    and drop-path randomness. A draw from torch's global generator would be
+    hidden state that no train-state carries, so a missing generator is an
+    error."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs an explicit generator (torch.Generator)")
+    return (torch.rand(shape, device=x.device, generator=generator) < 1.0 - rate).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout with an explicit generator, Flax ``nn.Dropout``'s
+    semantics: in training mode each entry is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``; in evaluation mode, or at
+    rate 0, the input passes and nothing is drawn."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        return x / (1.0 - self.rate) * keep_mask(x, self.rate, x.shape, generator)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` with fp32 parameters and a compute ``dtype``.
 

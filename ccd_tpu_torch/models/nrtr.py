@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ccd_tpu_torch.models.layers import Dense, LayerNorm, init_dense_layers
+from ccd_tpu_torch.models.layers import Dense, Dropout, LayerNorm, init_dense_layers
 from ccd_tpu_torch.ops.activations import gelu as _gelu
 
 _NEG_INF = -1e30
@@ -55,8 +55,8 @@ class MultiHeadAttention(nn.Module):
         self.linear_k = Dense(d_kv_in, n_head * d_k, bias=qkv_bias, dtype=dtype)
         self.linear_v = Dense(d_kv_in, n_head * d_v, bias=qkv_bias, dtype=dtype)
         self.fc = Dense(n_head * d_v, d_model, bias=qkv_bias, dtype=dtype)
-        self.attn_drop = nn.Dropout(dropout)
-        self.proj_drop = nn.Dropout(dropout)
+        self.attn_drop = Dropout(dropout)
+        self.proj_drop = Dropout(dropout)
 
     def q_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
@@ -71,13 +71,17 @@ class MultiHeadAttention(nn.Module):
         return self.linear_v(x).reshape(b, l, self.n_head, self.d_v)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+               mask: Optional[torch.Tensor], generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """q: (B,Lq,H,dk), k/v: (B,Lk,H,d*), mask bool (broadcastable to
-        (B,H,Lq,Lk), True=keep) -> (out (B,Lq,H,dv), attn (B,H,Lq,Lk))."""
-        return self.attend_head_major(q, k.transpose(1, 2), v.transpose(1, 2), mask)
+        (B,H,Lq,Lk), True=keep) -> (out (B,Lq,H,dv), attn (B,H,Lq,Lk)).
+        ``generator`` draws the dropout on the probabilities in training mode."""
+        return self.attend_head_major(q, k.transpose(1, 2), v.transpose(1, 2), mask, generator)
 
     def attend_head_major(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+                          mask: Optional[torch.Tensor],
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`attend` with keys and values head-major, (B,H,Lk,d*). The
         batched products read them in place when they are contiguous in that
         layout, which is how the greedy decode keeps them: in (B,Lk,H,d*)
@@ -86,18 +90,19 @@ class MultiHeadAttention(nn.Module):
         if mask is not None:
             scores = scores.masked_fill(~mask, _NEG_INF)
         attn = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        attn = self.attn_drop(attn)
+        attn = self.attn_drop(attn, generator)
         out = torch.matmul(attn, v).transpose(1, 2)  # (B,Lq,H,dv)
         return out, attn
 
-    def out_proj(self, out: torch.Tensor) -> torch.Tensor:
+    def out_proj(self, out: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, l = out.shape[:2]
-        return self.proj_drop(self.fc(out.reshape(b, l, self.n_head * self.d_v)))
+        return self.proj_drop(self.fc(out.reshape(b, l, self.n_head * self.d_v)), generator)
 
-    def forward(self, q_in, k_in, v_in, mask=None):
+    def forward(self, q_in, k_in, v_in, mask=None, generator=None):
         out, attn = self.attend(self.q_heads(q_in), self.k_heads(k_in),
-                                self.v_heads(v_in), mask)
-        return self.out_proj(out), attn
+                                self.v_heads(v_in), mask, generator)
+        return self.out_proj(out, generator), attn
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -106,10 +111,11 @@ class PositionwiseFeedForward(nn.Module):
         super().__init__()
         self.w_1 = Dense(d_model, d_inner, dtype=dtype)
         self.w_2 = Dense(d_inner, d_model, dtype=dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.drop(self.w_2(_gelu(self.w_1(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.drop(self.w_2(_gelu(self.w_1(x))), generator)
 
 
 class TFDecoderLayer(nn.Module):
@@ -129,16 +135,17 @@ class TFDecoderLayer(nn.Module):
                                            qkv_bias, d_kv_in=d_enc, dtype=dtype)
         self.mlp = PositionwiseFeedForward(d_inner, d_model, dropout, dtype=dtype)
 
-    def forward(self, x, enc, self_mask=None, enc_mask=None):
+    def forward(self, x, enc, self_mask=None, enc_mask=None, generator=None):
         n = self.norm1(x)
         sa = self.self_attn
-        a, _ = sa.attend(sa.q_heads(n), sa.k_heads(n), sa.v_heads(n), self_mask)
-        x = x + sa.out_proj(a)
+        a, _ = sa.attend(sa.q_heads(n), sa.k_heads(n), sa.v_heads(n), self_mask, generator)
+        x = x + sa.out_proj(a, generator)
         n = self.norm2(x)
         ea = self.enc_attn
-        a, attn = ea.attend(ea.q_heads(n), ea.k_heads(enc), ea.v_heads(enc), enc_mask)
-        x = x + ea.out_proj(a)
-        x = x + self.mlp(self.norm3(x))
+        a, attn = ea.attend(ea.q_heads(n), ea.k_heads(enc), ea.v_heads(enc), enc_mask,
+                            generator)
+        x = x + ea.out_proj(a, generator)
+        x = x + self.mlp(self.norm3(x), generator)
         return x, attn
 
     def step(self, x, cache_k, cache_v, t: int, enc_k, enc_v, key_mask):
@@ -175,7 +182,7 @@ class NRTRDecoder(nn.Module):
         self.register_buffer(
             "pos_table", torch.from_numpy(sinusoid_table(n_position, d_embedding)),
             persistent=False)
-        self.emb_drop = nn.Dropout(dropout)
+        self.emb_drop = Dropout(dropout)
         self.layer_stack = nn.ModuleList([
             TFDecoderLayer(d_model, d_inner, n_head, d_k, d_v, dropout, d_enc=d_enc,
                            dtype=dtype)
@@ -195,20 +202,22 @@ class NRTRDecoder(nn.Module):
         # BOS/EOS share an id in the default convertor layout (id 91)
         return self.start_idx
 
-    def forward(self, out_enc, targets=None, train_mode: bool = True):
+    def forward(self, out_enc, targets=None, train_mode: bool = True, generator=None):
         if train_mode:
-            return self.forward_train(out_enc, targets)
+            return self.forward_train(out_enc, targets, generator)
         return self.decode_greedy(out_enc)
 
     def _embed(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         return self.trg_word_emb(tokens).to(self.dtype) + pos.to(self.dtype)
 
     # ------------------------------------------------------------- train
-    def forward_train(self, out_enc: torch.Tensor, targets: torch.Tensor
+    def forward_train(self, out_enc: torch.Tensor, targets: torch.Tensor,
+                      generator: Optional[torch.Generator] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced decode: (B, S, Dm) enc + (B, T) targets -> (B, T, C-1)."""
+        """Teacher-forced decode: (B, S, Dm) enc + (B, T) targets -> (B, T, C-1).
+        In training mode ``generator`` draws every dropout mask."""
         b, t = targets.shape
-        x = self.emb_drop(self._embed(targets, self.pos_table[:, :t]))
+        x = self.emb_drop(self._embed(targets, self.pos_table[:, :t]), generator)
 
         pad_mask = (targets != self.padding_idx)[:, None, None, :]  # key mask
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
@@ -217,7 +226,7 @@ class NRTRDecoder(nn.Module):
 
         attn = None
         for layer in self.layer_stack:
-            x, attn = layer(x, out_enc, self_mask, None)
+            x, attn = layer(x, out_enc, self_mask, None, generator)
         return self.classifier(self.layer_norm(x)), attn
 
     # ------------------------------------------------------------- greedy

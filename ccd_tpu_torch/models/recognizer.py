@@ -60,23 +60,27 @@ class CCDRecognizer(nn.Module):
         from ccd_tpu_torch.models.layers import init_dense_layers
         init_dense_layers(self.encoder, generator)
 
-    def extract_feat(self, img: torch.Tensor) -> torch.Tensor:
-        tokens, _ = self.backbone(img)
+    def extract_feat(self, img: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        tokens, _ = self.backbone(img, generator)
         return tokens
 
     def forward(self, img: torch.Tensor, targets: Optional[torch.Tensor] = None,
-                train_mode: bool = True, test_speed: bool = False):
+                train_mode: bool = True, test_speed: bool = False,
+                generator: Optional[torch.Generator] = None):
         """img: (B, 32, 128, 3) NHWC normalized images.
 
         train_mode=True: requires ``targets`` (B, T) padded target ids;
         returns (logits (B, T, C-1), cross_attn (B, H, T, 256)).
         train_mode=False: returns greedy per-step softmax (B, T, C-1);
         test_speed=True uses the early-exit decode (forward_test_speed).
-        Dropout and stochastic depth follow ``self.training``.
+        Dropout and stochastic depth follow ``self.training``: in training
+        mode ``generator`` draws every mask (and its absence is an error
+        where a rate is non-zero); in evaluation mode nothing is drawn.
         """
-        out_enc = self.encoder(self.extract_feat(img))
+        out_enc = self.encoder(self.extract_feat(img, generator), generator)
         if train_mode:
-            return self.decoder(out_enc, targets, train_mode=True)
+            return self.decoder(out_enc, targets, train_mode=True, generator=generator)
         if test_speed:
             return self.decoder.decode_greedy_early_stop(out_enc)
         return self.decoder(out_enc, None, train_mode=False)

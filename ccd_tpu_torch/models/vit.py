@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ccd_tpu_torch.models.layers import Dense, LayerNorm, init_dense_layers, trunc_normal_
+from ccd_tpu_torch.models.layers import (Dense, Dropout, LayerNorm, init_dense_layers, keep_mask,
+                                         trunc_normal_)
 from ccd_tpu_torch.ops.activations import gelu as _gelu
 from ccd_tpu_torch.ops.flash_attention import mha_packed, mha_packed_bias
 from ccd_tpu_torch.ops.image import resize_bicubic
@@ -42,10 +43,8 @@ class DropPath(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
-        keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, device=x.device, generator=generator) < keep
-        return x / keep * mask.to(x.dtype)
+        return x / (1.0 - self.rate) * keep_mask(x, self.rate, shape, generator)
 
 
 class Mlp(nn.Module):
@@ -54,11 +53,12 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Dense(in_features, hidden_features, dtype=dtype)
         self.fc2 = Dense(hidden_features, out_features, dtype=dtype)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(_gelu(self.fc1(x)))
-        return self.drop(self.fc2(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.drop(_gelu(self.fc1(x)), generator)
+        return self.drop(self.fc2(x), generator)
 
 
 class Attention(nn.Module):
@@ -78,20 +78,21 @@ class Attention(nn.Module):
         self.scale = (dim // num_heads) ** -0.5
         self.qkv = Dense(dim, dim * 3, bias=qkv_bias, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
 
     def qkv_unbiased(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``(x @ W_qkv^T, bias)`` WITHOUT adding the bias."""
         qkv = F.linear(x.to(self.qkv.dtype), self.qkv.cast_param("weight"))
         return qkv, self.qkv.cast_param("bias")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         qkv, bias = self.qkv_unbiased(x)
         if bias is None:
             out = mha_packed(qkv, self.scale, self.num_heads)  # (B, N, C)
         else:
             out = mha_packed_bias(qkv, bias, self.scale, self.num_heads)
-        return self.proj_drop(self.proj(out))
+        return self.proj_drop(self.proj(out), generator)
 
 
 class Block(nn.Module):
@@ -108,8 +109,8 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)), generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+        x = x + self.drop_path(self.attn(self.norm1(x), generator), generator)
+        return x + self.drop_path(self.mlp(self.norm2(x), generator), generator)
 
 
 class PatchEmbed(nn.Module):
@@ -155,7 +156,7 @@ class VisionTransformer(nn.Module):
         self.num_patches = (img_size[0] // patch_size) * (img_size[1] // patch_size)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype=dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, self.num_patches, embed_dim))
-        self.pos_drop = nn.Dropout(drop_rate)
+        self.pos_drop = Dropout(drop_rate)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate, attn_drop_rate,
@@ -206,18 +207,19 @@ class VisionTransformer(nn.Module):
             self._pos_cache = (key, out.detach())
         return out
 
-    def prepare_tokens(self, x: torch.Tensor) -> torch.Tensor:
+    def prepare_tokens(self, x: torch.Tensor,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, _ = x.shape
         tokens = self.patch_embed(x)
         tokens = tokens + self._interpolate_pos_encoding(tokens.shape[1], h, w).to(tokens.dtype)
-        return self.pos_drop(tokens)
+        return self.pos_drop(tokens, generator)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """x: (B, H, W, 3) NHWC -> (tokens (B, N, E), [3x (B, gh, gw, E) taps])."""
         b, h, w, _ = x.shape
         gh, gw = h // self.patch_size, w // self.patch_size
-        tokens = self.prepare_tokens(x)
+        tokens = self.prepare_tokens(x, generator)
         taps = []
         for index, blk in enumerate(self.blocks):
             tokens = blk(tokens, generator)

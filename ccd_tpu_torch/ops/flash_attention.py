@@ -1,6 +1,20 @@
-"""Packed multi-head attention: ``softmax((q+bq)(k+bk)^T * scale) (v+bv)``
-per head, straight from the qkv projection ``(B, S, 3C)`` to ``(B, S, C)``,
-with its gradient.
+"""Multi-head attention with its gradient, in two layouts over one pair of
+kernels.
+
+* Packed (K1): ``softmax((q+bq)(k+bk)^T * scale) (v+bv)`` per head, straight
+  from the qkv projection ``(B, S, 3C)`` to ``(B, S, C)``: :func:`mha_packed_bias`,
+  :func:`mha_packed`, :func:`mha_packed_bias_bwd`.
+* Folded or head-split (K1b): ``softmax(q k^T * scale) v`` on ``(B*H, S, D)``
+  tensors (:func:`flash_attention`, :func:`flash_attention_bwd`) or on
+  ``(B, S, H, D)`` tensors (:func:`mha`), read and written where they lie:
+  counterparts of ``ccd_tpu/ops/flash_attention.py::flash_attention`` /
+  ``mha`` (the Pallas kernels ``_fwd_kernel`` and ``_bwd_kernel``). The JAX
+  ``mha`` transposes q, k, v into the folded layout and the output back; here
+  the kernels take strides and no transpose happens.
+
+The CUDA kernels take every operand as a base pointer with a batch stride, a
+row stride and a per-head column offset, so both layouts run the same device
+code through two C entries per direction.
 
 Counterpart of ``ccd_tpu/ops/flash_attention.py::mha_packed_bias`` /
 ``mha_packed`` (the Pallas kernels ``_packed_fwd_kernel`` and
@@ -43,7 +57,8 @@ _ROW_TILE = 64                # S must be a multiple of this on the card
 _HEAD_DIMS = (32, 64)
 # what the C entry points return besides CUDA's own (positive) error codes
 _REFUSALS = {-1: "unsupported head dim",
-             -2: "S too large: one head's rows do not fit in shared memory"}
+             -2: "S too large: one head's rows do not fit in shared memory",
+             -3: "batch too large for the grid (at most 65535)"}
 
 
 def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int) -> None:
@@ -115,11 +130,12 @@ def _kernel_args(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int):
     return bias
 
 
-def _call(entry: str, library: str, tensors, qkv: torch.Tensor, scale: float,
-          heads: int) -> None:
+def _c_call(entry: str, library: str, tensors, dims, scale: float, device: torch.device,
+            strides=None, what: str = "") -> None:
     """Launch C entry point ``entry`` of ``csrc/<library>.cu`` on the current
     stream: the pointers of ``tensors`` ((name, tensor or None) pairs), then
-    B, S, H, D, is_bf16, scale, stream."""
+    the host array of ``strides`` (int64 element strides) where given, then
+    ``dims`` (B, S, H, D), is_bf16, scale, stream."""
     import ctypes
 
     from ccd_tpu_torch.ops._build import load_library
@@ -129,18 +145,27 @@ def _call(entry: str, library: str, tensors, qkv: torch.Tensor, scale: float,
             raise ValueError(f"{name} is not 16-byte aligned")
     fn = getattr(load_library(library), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (len(tensors) + (strides is not None)) + \
+            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    b, s, c3 = qkv.shape
-    with torch.cuda.device(qkv.device):
-        err = fn(*[t.data_ptr() if t is not None else None for _, t in tensors],
-                 b, s, heads, c3 // 3 // heads, int(qkv.dtype == torch.bfloat16),
-                 float(scale), torch.cuda.current_stream().cuda_stream)
+    dtype = next(t for _, t in tensors if t is not None).dtype
+    extra = [] if strides is None else [(ctypes.c_longlong * len(strides))(*strides)]
+    with torch.cuda.device(device):
+        err = fn(*[t.data_ptr() if t is not None else None for _, t in tensors], *extra,
+                 *dims, int(dtype == torch.bfloat16), float(scale),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} refused or failed at launch: "
-                           f"{_REFUSALS.get(err, f'CUDA error {err}')} "
-                           f"(qkv {tuple(qkv.shape)} {qkv.dtype}, heads {heads})")
+                           f"{_REFUSALS.get(err, f'CUDA error {err}')} ({what})")
+
+
+def _call(entry: str, library: str, tensors, qkv: torch.Tensor, scale: float,
+          heads: int) -> None:
+    """Launch a packed entry point: the pointers of ``tensors``, then B, S,
+    H, D, is_bf16, scale, stream."""
+    b, s, c3 = qkv.shape
+    _c_call(entry, library, tensors, (b, s, heads, c3 // 3 // heads), scale, qkv.device,
+            what=f"qkv {tuple(qkv.shape)} {qkv.dtype}, heads {heads}")
 
 
 def _launch(qkv: torch.Tensor, bias: Optional[torch.Tensor], scale: float,
@@ -239,3 +264,187 @@ def mha_packed(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
     """Fused attention on the raw (already-biased) qkv projection
     (B, S, 3C) -> (B, S, C)."""
     return mha_packed_bias(qkv, None, scale, heads)
+
+
+# --------------------------------------------------- folded and (B, S, H, D)
+#
+# K1b: the same kernels through their strided entries. A folded (B*H, S, D)
+# tensor is B*H batches of one head; a (B, S, H, D) tensor is read with row
+# stride H*D and head offset D, so `mha` moves no data before or after.
+
+
+_LAYOUTS = {3: "(BH, S, D)", 4: "(B, S, H, D)"}
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ndims=(3, 4)) -> None:
+    if q.ndim not in ndims or k.shape != q.shape or v.shape != q.shape:
+        layout = " or ".join(_LAYOUTS[n] for n in ndims)
+        raise ValueError(f"q, k, v must be one {layout} shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _SUPPORTED_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must be one of float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B, H, S, D) view; a folded (BH, S, D) stays as it is."""
+    return x.permute(0, 2, 1, 3) if x.ndim == 4 else x
+
+
+def _heads_back(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    return x.permute(0, 2, 1, 3).contiguous() if ndim == 4 else x
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the K1b forward, any device, on (BH, S, D) or
+    (B, S, H, D): fp32 logits and softmax, p cast to the input type before
+    ``p @ v``, fp32 accumulation, one rounding of the output."""
+    _check_qkv(q, k, v)
+    qh, kh, vh = (_heads_first(x).float() for x in (q, k, v))
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1).to(q.dtype)
+    out = torch.matmul(p.float(), vh).to(q.dtype)
+    return _heads_back(out, q.ndim)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              dout: torch.Tensor, scale: float):
+    """Plain PyTorch version of the K1b backward, any device: ``(dq, dk, dv)``
+    in the layout of q. The rounding points are the kernel's: ``dS`` cast to
+    the input type before the dq and dk products, ``p`` before dv."""
+    _check_qkv(q, k, v)
+    dtype = q.dtype
+    qh, kh, vh, do = (_heads_first(x).float() for x in (q, k, v, dout))
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    dp = torch.matmul(do, vh.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds * scale).to(dtype).float()
+    grads = (torch.matmul(ds, kh), torch.matmul(ds.transpose(-1, -2), qh),
+             torch.matmul(p.to(dtype).float().transpose(-1, -2), do))
+    return tuple(_heads_back(g.to(dtype), q.ndim) for g in grads)
+
+
+def _layout(x: torch.Tensor):
+    """(B, H) and the (batch, row, head) element strides of a (BH, S, D) or
+    (B, S, H, D) tensor, for the kernels' strided entries."""
+    if x.ndim == 3:
+        return (x.shape[0], 1), (x.stride(0), x.stride(1), 0)
+    return (x.shape[0], x.shape[2]), (x.stride(0), x.stride(1), x.stride(2))
+
+
+def _strided_args(tensors):
+    """Checks what the kernels do not take; returns (B, S, H, D) and the
+    strides of ``tensors`` ((name, tensor) pairs, all of q's shape)."""
+    q = tensors[0][1]
+    s, d = q.shape[1], q.shape[-1]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernel (takes {_HEAD_DIMS})")
+    if s % _ROW_TILE != 0:
+        raise ValueError(f"S = {s} must be a multiple of {_ROW_TILE}")
+    per_16_bytes = 16 // q.element_size()
+    strides = []
+    for name, t in tensors:
+        (b, h), st = _layout(t)
+        if t.stride(-1) != 1 or any(x % per_16_bytes for x in st):
+            raise ValueError(f"{name}: D must be contiguous and rows 16 bytes apart, got "
+                             f"strides {tuple(t.stride())}")
+        strides += st
+    return (b, s, h, d), strides
+
+
+def _launch_flash(q, k, v, scale: float) -> torch.Tensor:
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dims, strides = _strided_args((("q", q), ("k", k), ("v", v), ("out", out)))
+    _c_call("flash_attention_forward", "packed_attention",
+            (("q", q), ("k", k), ("v", v), ("out", out)), dims, scale, q.device,
+            strides=strides, what=f"q {tuple(q.shape)} {q.dtype}")
+    flash_attention.launches += 1
+    if q.ndim == 4:
+        mha.launches += 1
+    return out
+
+
+def _launch_flash_bwd(q, k, v, dout, scale: float):
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"dout must be {tuple(q.shape)} {q.dtype} on {q.device}, got "
+                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    grads = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v)]
+    named = (("q", q), ("k", k), ("v", v), ("dout", dout), ("dq", grads[0]),
+             ("dk", grads[1]), ("dv", grads[2]))
+    dims, strides = _strided_args(named)
+    b, s, h, _ = dims
+    # per-row log-sum-exp and rowsum(dP * P): the first kernel's notes to the second
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    _c_call("flash_attention_backward", "packed_attention_bwd",
+            named + (("lse", lse), ("delta", delta)), dims, scale, q.device,
+            strides=strides, what=f"q {tuple(q.shape)} {q.dtype}")
+    flash_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+def _on_device(plain, launch, q, *args):
+    if q.device.type == "cpu":
+        return plain(q, *args)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return launch(q, *args)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, scale: float):
+    """``(dq, dk, dv)`` from ``dout``: the backward of :func:`flash_attention`
+    (on (BH, S, D)) or :func:`mha` (on (B, S, H, D)).
+
+    ``flash_attention_bwd.launches`` counts kernel launches (and nothing else)."""
+    _check_qkv(q, k, v)
+    return _on_device(flash_attention_bwd_plain, _launch_flash_bwd, q, k, v, dout, scale)
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1b forward and backward under one differentiable call; saves q, k, v
+    only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _on_device(flash_attention_plain, _launch_flash, q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Fused attention on folded tensors: q, k, v (BH, S, D) -> (BH, S, D),
+    ``softmax(q k^T * scale) v``. Differentiable with respect to q, k and v.
+
+    ``flash_attention.launches`` counts launches of the forward kernel (and
+    nothing else), through this function and through :func:`mha`."""
+    _check_qkv(q, k, v, (3,))
+    return _FlashAttention.apply(q, k, v, scale)
+
+
+flash_attention.launches = 0
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """(B, S, H, D) attention through the same kernels, read and written in
+    that layout; returns (B, S, H, D). Differentiable.
+
+    ``mha.launches`` counts the forward kernel's launches made through this
+    function (they are counted in ``flash_attention.launches`` too)."""
+    _check_qkv(q, k, v, (4,))
+    return _FlashAttention.apply(q, k, v, scale)
+
+
+mha.launches = 0

@@ -1,10 +1,12 @@
-"""The optimizer and the gradient-control utilities of the pretraining step.
+"""The optimizer and the gradient-control utilities of the pretraining and
+finetune steps.
 
 Counterpart of ``ccd_tpu/training/optim.py``. Parity targets in
 ``Dino/modules/utils.py``: ``get_params_groups`` (biases and 1-D params not
 regularized, ``:643-654``), ``clip_gradients`` (PER-PARAMETER norm clipping,
-``:132-141``), ``cancel_gradients_last_layer`` (``:144-149``), and the
-in-place EMA teacher update (``train.py:263-272``).
+``:132-141``), ``cancel_gradients_last_layer`` (``:144-149``), the in-place
+EMA teacher update (``train.py:263-272``), and the finetune path's global-norm
+clipping (``torch.nn.utils.clip_grad_norm_``).
 
 Parameters travel as ``{name: tensor}`` dictionaries in the order of
 ``module.named_parameters()``. The AdamW here is written out as tensor
@@ -93,6 +95,19 @@ def clip_gradients_per_param(grads: List[torch.Tensor], clip: Optional[float]
     norms = torch._foreach_norm(grads)
     coefs = torch.stack(norms).float().add_(1e-6).reciprocal_().mul_(clip).clamp_max_(1.0)
     torch._foreach_mul_(grads, list(coefs.unbind(0)))
+    return grads
+
+
+def clip_gradients_global_norm(grads: List[torch.Tensor], clip: Optional[float]
+                               ) -> List[torch.Tensor]:
+    """Global-norm clipping (``torch.nn.utils.clip_grad_norm_``, the finetune
+    path): every gradient times ``min(clip / (norm + 1e-6), 1)``, ``norm`` the
+    L2 norm over all of them. In place; reads nothing back to the host."""
+    if not clip:
+        return grads
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)).float())
+    coef = (clip / (norm + 1e-6)).clamp_max(1.0)
+    torch._foreach_mul_(grads, coef)
     return grads
 
 

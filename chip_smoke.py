@@ -22,7 +22,18 @@ shipped configurations, with random weights from a seed:
     self-predicted ones;
   * the ``train`` CLI (``python -m ccd_tpu_torch.cli.train``) on the same
     configuration over a synthetic LMDB: 16 iterations in two dispatches of
-    8, a checkpoint, and a second run that resumes from it.
+    8, a checkpoint, and a second run that resumes from it;
+  * the card's calibration (``python -m ccd_tpu_torch.cli.calibrate``, in
+    process, fewer calls per row): matrix-product and copy rates, and the
+    folded attention forward and backward (K1b) at (768, 256, 64);
+  * the finetune step at full width (``ccd_finetune_ard.yaml``: ViT-Small +
+    6-layer NRTR, bf16, batch 288, dropout and drop path 0.1) on rendered
+    words as uint8 and their targets, through ``build_recognizer`` /
+    ``init_finetune_state`` / ``make_fused_finetune_step`` with
+    ``supervised_augment``;
+  * the ``train_finetune`` CLI on the shipped configuration over synthetic
+    LMDBs, its backbone handed over from the ``train`` CLI's checkpoint: 16
+    iterations with evaluations, a checkpoint, and a resume to 32.
 
 It checks that each path went through the kernels (launch counts set to 0
 just before a path and read just after) and that its output agrees with a
@@ -54,12 +65,15 @@ import ccd_tpu_torch
 import ccd_tpu_torch.data.aug_ops as aug_ops_mod
 import ccd_tpu_torch.losses.losses as losses_mod
 import ccd_tpu_torch.models.vit as vit_mod
+import ccd_tpu_torch.training.finetune_step as finetune_step_mod
 import ccd_tpu_torch.training.pretrain_step as pretrain_step_mod
 from ccd_tpu_torch.builders import build_pretrain_models, build_recognizer
+from ccd_tpu_torch.cli import calibrate
 from ccd_tpu_torch.config import Config
+from ccd_tpu_torch.convertor import AttnConvertor
 from ccd_tpu_torch.data.dataset import SupervisedDataset, build_dataset
 from ccd_tpu_torch.data.pipeline import DataLoader
-from ccd_tpu_torch.data.augment import pretrain_views
+from ccd_tpu_torch.data.augment import pretrain_views, supervised_augment
 from ccd_tpu_torch.data.random import TorchKey
 from ccd_tpu_torch.data.synthetic import make_synthetic_batch, write_synthetic_lmdb
 from ccd_tpu_torch.evaluation import runner
@@ -67,10 +81,14 @@ from ccd_tpu_torch.losses import teacher_temp_schedule
 from ccd_tpu_torch.ops import _build
 from ccd_tpu_torch.ops.bilateral import bilateral_filter_fused, bilateral_filter_plain
 from ccd_tpu_torch.ops.cc_label import label_clusters
-from ccd_tpu_torch.ops.flash_attention import (mha_packed_bias, mha_packed_bias_bwd,
+from ccd_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                               flash_attention_bwd_plain, flash_attention_plain,
+                                               mha, mha_packed_bias, mha_packed_bias_bwd,
                                                mha_packed_bias_bwd_plain,
                                                mha_packed_bias_plain)
 from ccd_tpu_torch.ops.fused_dino_ce import fused_dino_row_ce, fused_dino_row_ce_plain
+from ccd_tpu_torch.training.finetune_step import (FinetuneState, init_finetune_state,
+                                                  make_fused_finetune_step)
 from ccd_tpu_torch.training.pretrain_step import (PretrainState, init_pretrain_state,
                                                   make_fused_pretrain_step)
 
@@ -89,16 +107,27 @@ CONFIG = os.path.join(PKG_DIR, "configs", "ccd_finetune_ard.yaml")
 PRETRAIN_CONFIG = os.path.join(PKG_DIR, "configs", "ccd_pretrain_vit_small.yaml")
 PRETRAIN_BATCH = 64                    # -> 2B = 128 images of 256 tokens, 3328 rows of 65536
 GT_STEPS, PREDICTED_STEPS = 6, 3       # pretraining steps in the two mask regimes
-LAUNCHES_PER_STEP = {"K1-fwd": 24, "K1-bwd": 12, "K2-fwd": 1, "K2-bwd": 1, "K3": 2}
+LAUNCHES_PER_STEP = {"K1-fwd": 24, "K1-bwd": 12, "K1b-fwd": 0, "K1b-bwd": 0, "K2-fwd": 1,
+                     "K2-bwd": 1, "K3": 2}
 CLI_ITERS, CLI_RESUMED_ITERS, CLI_WORDS = 16, 48, 1024  # 1024 words: 16 iterations an epoch
 STEP_PHASES = ("augment", "student_encode", "segment", "label_clusters", "warp", "teacher_encode",
                "pool_head", "seg_loss", "dino_ce", "backward", "update")
+# the finetune step: 12 ViT blocks forward through K1-fwd and backward through K1-bwd
+FT_LAUNCHES_PER_STEP = {"K1-fwd": 12, "K1-bwd": 12, "K1b-fwd": 0, "K1b-bwd": 0, "K2-fwd": 0,
+                        "K2-bwd": 0, "K3": 0}
+FT_STEPS = 6                           # timed finetune steps after the compared one
+FT_PHASES = ("augment", "forward", "tf_loss", "backward", "update")
+# finetune CLI: 1152 words = 4 iterations an epoch at batch 288, 35 epochs;
+# evaluations every 8 iterations over the CLI's 288-word test LMDB
+FT_CLI_WORDS, FT_CLI_ITERS, FT_CLI_RESUMED_ITERS, FT_CLI_EVAL_ITERS = 1152, 16, 32, 8
+CALIBRATE_ITERS = 10                   # calls per calibration row (the CLI's default is 50)
 
 # |kernel - plain| on O(1) outputs. bf16: both round p and the output to bf16
 # (ulp 2^-8 relative, 2^-7 absolute just below 2), at different points of the
 # softmax normalisation. fp32: same products, summed in another order.
 # The backward's outputs are O(1) to O(4) and rounded once more (dS, P) than the
 # forward's, at the same places in kernel and plain version: the same limits.
+# K1b (folded and (B, S, H, D) operands) runs the same device code: the same limits.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # dbias sums dqkv over B*S rows; kernel and plain dqkv differ by roundings of
 # either sign, so the sums are compared relative to the largest entry.
@@ -114,6 +143,9 @@ TOL_DS_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # drop-path draws: the losses are O(1) to O(10) means over thousands of rows
 # whose logits differ by bf16 roundings of either sign; the first moments
 # (0.1 x the clipped gradients) pass through 12 bf16 blocks backwards.
+# The finetune step is held to the same limits: its tf_loss is a mean over
+# thousands of targets, its first moments pass through 12 ViT blocks and 6
+# decoder layers backwards in bf16.
 TOL_STEP_LOSS_REL = 1e-2
 TOL_STEP_GRAD_REL = 0.15
 # End to end, kernel run against plain-attention run, bf16, random weights:
@@ -162,16 +194,21 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def roofline(nbytes: float, flops: float, dtype, bytes_per_s: float = HBM_BYTES_PER_S):
+    """(least time in ms, what bounds it): bytes over the memory rate against
+    operations over the type's peak rate."""
+    t_bytes = nbytes / bytes_per_s * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def attention_bound(b, s, c, h, dtype, with_bias):
     """Least time the card could take: each input read once, each output
     written once, over the memory rate; 4*S*S*D flop per head and batch row
     over the peak rate of the type."""
     elem = torch.empty((), dtype=dtype).element_size()
     nbytes = (b * s * 3 * c + (3 * c if with_bias else 0) + b * s * c) * elem
-    flops = 4 * s * s * (c // h) * h * b
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline(nbytes, 4 * s * s * (c // h) * h * b, dtype)
 
 
 def check_attention(shape, dtype, with_bias, gen):
@@ -211,10 +248,7 @@ def attention_bwd_bound(b, s, c, h, dtype, with_bias):
     2*S*S*D flop per head and batch row."""
     elem = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * b * s * 3 * c + b * s * c + (3 * c if with_bias else 0)) * elem
-    flops = 10 * s * s * (c // h) * h * b
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline(nbytes, 10 * s * s * (c // h) * h * b, dtype)
 
 
 def check_attention_bwd(shape, dtype, with_bias, gen):
@@ -274,12 +308,8 @@ def fused_ce_bounds(r, k, dtype):
     elem = torch.empty((), dtype=dtype).element_size()
     fwd_bytes = 2 * r * k * elem + 4 * k + 4 * r * 6
     bwd_bytes = 3 * r * k * elem + 4 * k + 4 * r * 6
-    out = []
-    for nbytes, flops in ((fwd_bytes, 12 * r * k), (bwd_bytes, 10 * r * k)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-        out.append((max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"))
-    return out
+    return [roofline(fwd_bytes, 12 * r * k, torch.float32),
+            roofline(bwd_bytes, 10 * r * k, torch.float32)]
 
 
 def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_temp=0.1):
@@ -310,31 +340,94 @@ def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_tem
     reps = dict(reps=3, warmup=1) if heavy else {}
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = fused_ce_bounds(r, k, dtype)
     common = {"shape": [r, k], "dtype": str(dtype).replace("torch.", ""),
-              "swap_halves": swap_halves, "library_ms": None}
+              "swap_halves": swap_halves,
+              "library_call": "F.cross_entropy(s / student_temp, torch.softmax((t - c) / "
+                              "teacher_temp)) on rows already paired: no one call computes "
+                              "the centred, cross-view CE"}
     sd = s.detach()
+    # the closest library composition, on the same inputs with the teacher's
+    # rows paired beforehand (outside the timing); used nowhere in the port
+    tp = torch.roll(t, -(r // 2), dims=0) if swap_halves else t
+    sl = s.detach().clone().requires_grad_()
+    library = lambda x: F.cross_entropy(
+        x.float() / student_temp, torch.softmax((tp.float() - c) / teacher_temp, dim=-1),
+        reduction="none")
+    lce = library(sl)
     fwd = dict(common, max_abs_err=float(ce_err.max()), tol={"rtol": rtol, "atol": atol},
                kernel_ms=time_ms(lambda: fused_dino_row_ce(sd, t, *args)),
                plain_ms=time_ms(lambda: fused_dino_row_ce_plain(sd, t, *args), **reps),
+               library_ms=time_ms(lambda: library(sd), **reps),
                bound_ms=fwd_bound, bound_by=fwd_by)
     bwd = dict(common, max_abs_err=ds_err, rel_err=ds_rel, tol_rel=TOL_DS_REL[dtype],
                kernel_ms=time_ms(lambda: torch.autograd.grad(ce, s, g, retain_graph=True)),
                plain_ms=time_ms(lambda: torch.autograd.grad(ref, s, g, retain_graph=True),
                                 **reps),
+               library_ms=time_ms(lambda: torch.autograd.grad(lce, sl, g, retain_graph=True),
+                                  **reps),
                bound_ms=bwd_bound, bound_by=bwd_by)
     return fwd, bwd
 
 
-def unported_kernel_bounds(batch: int):
-    """Bounds of the TPU kernels still to port, from the shapes their paths
-    would give them (no kernel to time yet): the packed kernels' work on
-    folded (B*H, S, D) q, k, v."""
-    shape = (2 * batch, 256, 384, 6)
-    k1b_fwd = attention_bound(*shape, torch.bfloat16, False)
-    k1b_bwd = attention_bwd_bound(*shape, torch.bfloat16, False)
-    return {"K1b-fwd": {"shape": [shape[0] * 6, 256, 64], "dtype": "bfloat16",
-                        "bound_ms": k1b_fwd[0], "bound_by": k1b_fwd[1]},
-            "K1b-bwd": {"shape": [shape[0] * 6, 256, 64], "dtype": "bfloat16",
-                        "bound_ms": k1b_bwd[0], "bound_by": k1b_bwd[1]}}
+def check_flash(shape, dtype, gen):
+    """K1b forward and backward against their plain versions on the same
+    seeded inputs: folded (BH, S, D) through ``flash_attention``, or
+    (B, S, H, D) through ``mha``; the library's attention, forward and
+    backward, as a yardstick. Bounds: q, k, v read and o written (forward),
+    q, k, v, dO read and dq, dk, dv written (backward), once each; 4 and 10
+    S*S*D flop per head."""
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    bshd = len(shape) == 4
+    fn = mha if bshd else flash_attention
+    what = f"{'mha' if bshd else 'flash_attention'} {shape} {dtype}"
+    out = fn(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = float((out.float() - flash_attention_plain(q, k, v, scale).float()).abs().max())
+    grads = flash_attention_bwd(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    refs = flash_attention_bwd_plain(q, k, v, do, scale)
+    err_bwd = max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, refs))
+    if out.shape != q.shape or out.dtype != dtype or not bool(torch.isfinite(out).all()) \
+            or not all(g.shape == q.shape and bool(torch.isfinite(g).all()) for g in grads):
+        raise SystemExit(f"{what}: bad output")
+    if not err <= TOL[dtype] or not err_bwd <= TOL[dtype]:
+        raise SystemExit(f"{what}: max |kernel - plain| = {err} forward, {err_bwd} backward "
+                         f"> {TOL[dtype]}")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fn(*leaves, scale).backward(do)
+    if not all(bool(torch.equal(x.grad, g)) for x, g in zip(leaves, grads)):
+        raise SystemExit(f"{what}: the autograd function's gradients are not the kernel's")
+    # the library's attention on 4-D views of the same tensors (with 3-D ones it
+    # takes its unfused fallback): (B, H, S, D) from (B, S, H, D), (1, BH, S, D)
+    # from folded
+    heads_first = (lambda x: x.transpose(1, 2)) if bshd else (lambda x: x.unsqueeze(0))
+    lq, lk, lv = (heads_first(x).detach().requires_grad_() for x in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+    ldo = heads_first(do)
+    n, s_len, d = q.numel(), shape[1], shape[-1]
+    heads_rows = n // (s_len * d)
+    elem = q.element_size()
+    heavy = n > 1 << 24
+    slow = dict(reps=3, warmup=1) if heavy else {}
+    common = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+              "layout": "(B, S, H, D)" if bshd else "(BH, S, D)", "tol": TOL[dtype]}
+    fwd_bytes, fwd_flops = 4 * n * elem, 4 * s_len * s_len * d * heads_rows
+    bwd_bytes, bwd_flops = 7 * n * elem, 10 * s_len * s_len * d * heads_rows
+    fwd = dict(common, max_abs_err=err, bytes=fwd_bytes, flops=fwd_flops,
+               kernel_ms=time_ms(lambda: fn(q, k, v, scale)),
+               plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, scale), **slow),
+               # one library call on the same q, k, v; used nowhere in the port
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv,
+                                                                          scale=scale)))
+    fwd["bound_ms"], fwd["bound_by"] = roofline(fwd_bytes, fwd_flops, dtype)
+    bwd = dict(common, max_abs_err=err_bwd, bytes=bwd_bytes, flops=bwd_flops,
+               kernel_ms=time_ms(lambda: flash_attention_bwd(q, k, v, do, scale)),
+               plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, do, scale), **slow),
+               # the library's backward alone, on a graph built once
+               library_ms=time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                                              retain_graph=True)))
+    bwd["bound_ms"], bwd["bound_by"] = roofline(bwd_bytes, bwd_flops, dtype)
+    return fwd, bwd
 
 
 def bilateral_taps(rad2: torch.Tensor, max_radius: int) -> int:
@@ -353,9 +446,7 @@ def bilateral_bound(shape, rad2: torch.Tensor, max_radius: int):
     b, h, w, c = shape
     nbytes = 2 * b * h * w * c * 4 + 3 * b * 4
     taps = bilateral_taps(rad2, max_radius) * h * w
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = taps * BILATERAL_OPS_PER_TAP / PEAK_FLOPS[torch.float32] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), taps
+    return (*roofline(nbytes, taps * BILATERAL_OPS_PER_TAP, torch.float32), taps)
 
 
 def kernel_device_ms(fn, name_part: str, reps: int = 20) -> float:
@@ -468,7 +559,7 @@ def device_busy(fn):
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) is not None and "CUDA" not in str(ev.device_type):
             continue
-        if getattr(ev, "is_user_annotation", False) or ev.key in STEP_PHASES:
+        if getattr(ev, "is_user_annotation", False) or ev.key in STEP_PHASES + FT_PHASES:
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -645,12 +736,14 @@ class PhaseEvents:
 
 def kernel_counts():
     return {"K1-fwd": mha_packed_bias.launches, "K1-bwd": mha_packed_bias_bwd.launches,
+            "K1b-fwd": flash_attention.launches, "K1b-bwd": flash_attention_bwd.launches,
             "K2-fwd": fused_dino_row_ce.launches, "K2-bwd": fused_dino_row_ce.bwd_launches,
             "K3": bilateral_filter_fused.launches}
 
 
 def reset_kernel_counts() -> None:
     mha_packed_bias.launches = mha_packed_bias_bwd.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = mha.launches = 0
     fused_dino_row_ce.launches = fused_dino_row_ce.bwd_launches = 0
     bilateral_filter_fused.launches = 0
 
@@ -662,33 +755,41 @@ def pretrain_inputs(batch: int, seed: int):
     return torch.from_numpy(images).cuda(), torch.from_numpy(masks.astype(np.uint8)).cuda()
 
 
-def augmentation_alone(raw: torch.Tensor) -> dict:
-    """``pretrain_views`` at the step's batch on its own: its time, the card's
-    idle share and kernel launches under the profiler, and the host
-    synchronisations it makes (none are allowed: it runs inside the step)."""
+def augmentation_alone(raw: torch.Tensor, augment, name: str) -> dict:
+    """An augmentation at the step's batch on its own (``augment(key,
+    images)``, ``name`` its function): its time, the card's idle share and
+    kernel launches under the profiler, and the host synchronisations it
+    makes (none are allowed: it runs inside the step)."""
     import warnings
     images = raw.float() / 255.0
     key = TorchKey(torch.Generator(device="cuda").manual_seed(SEED))
-    views, theta = pretrain_views(key, images)
-    if views.shape != (raw.shape[0], 3, *raw.shape[1:]) or theta.shape != (raw.shape[0], 3, 3) \
-            or not bool(torch.isfinite(views).all()) or not bool(torch.isfinite(theta).all()):
-        raise SystemExit("augmentation: views or theta not finite or of the wrong shape")
-    ms = time_ms(lambda: pretrain_views(key, images), reps=5, warmup=1)
+    out = augment(key, images)
+    if not all(bool(torch.isfinite(x).all()) for x in (out if isinstance(out, tuple) else (out,))):
+        raise SystemExit(f"augmentation: {name} gave values that are not finite")
+    ms = time_ms(lambda: augment(key, images), reps=5, warmup=1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            pretrain_views(key, images)
+            augment(key, images)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message)[:200] for w in caught if "synchroniz" in str(w.message).lower()]
-    wall, busy, top, n_kernels = device_busy(lambda: pretrain_views(key, images))
-    return {"pretrain_views_ms": ms, "host_synchronisations": len(syncs),
+    wall, busy, top, n_kernels = device_busy(lambda: augment(key, images))
+    return {f"{name}_ms": ms, "host_synchronisations": len(syncs),
             "host_synchronisation_messages": syncs[:3],
             "profiled_wall_ms": wall, "profiled_device_busy_ms": busy,
             "profiled_device_idle_share": None if busy is None else 1.0 - busy / wall,
             "profiled_kernel_launches": n_kernels, "profiled_top_kernels": top}
+
+
+def pretrain_views_checked(key, images):
+    views, theta = pretrain_views(key, images)
+    if views.shape != (images.shape[0], 3, *images.shape[1:]) \
+            or theta.shape != (images.shape[0], 3, 3):
+        raise SystemExit("augmentation: views or theta of the wrong shape")
+    return views, theta
 
 
 def pretrain_path(card: str) -> dict:
@@ -804,7 +905,8 @@ def pretrain_path(card: str) -> dict:
     if launches != {k: v * n_steps for k, v in LAUNCHES_PER_STEP.items()} \
             or state.iteration != n_steps:
         raise SystemExit(f"pretrain path: {launches} launches over {state.iteration} steps")
-    augment = augmentation_alone(raw)  # after the count: its launches are not the path's
+    # after the count: its launches are not the path's
+    augment = augmentation_alone(raw, pretrain_views_checked, "pretrain_views")
 
     teacher_moved = max(float((p - p0).abs().max()) for p, p0 in
                         zip(teacher.parameters(), teacher0))
@@ -839,7 +941,142 @@ def pretrain_path(card: str) -> dict:
     return launches
 
 
-def train_cli_phase(card: str) -> dict:
+def finetune_inputs(batch: int, seed: int, max_seq_len: int):
+    """Rendered words as uint8 and their padded targets as int32, on the
+    card: what the data path hands the fused finetune step."""
+    images, _masks, words = make_synthetic_batch(batch, seed=seed)
+    targets = AttnConvertor("DICT90", max_seq_len=max_seq_len, with_unknown=True).str2tensor(words)
+    return torch.from_numpy(images).cuda(), torch.from_numpy(targets).cuda()
+
+
+def finetune_path(card: str) -> dict:
+    """The finetune step at full width; returns the kernels' launches on it."""
+    config = Config(CONFIG)
+    model, _ = build_recognizer(config, device="cuda",
+                                generator=torch.Generator().manual_seed(SEED))
+    decoder = model.decoder
+    if model.dtype != torch.bfloat16 or len(model.backbone.blocks) != 12 \
+            or model.backbone.embed_dim != 384 or len(decoder.layer_stack) != 6 \
+            or decoder.emb_drop.rate != 0.1 or model.encoder.drop.rate != 0.1 \
+            or model.backbone.blocks[-1].drop_path.rate != 0.1 \
+            or int(config.dataset_train_batch_size) != BATCH:
+        raise SystemExit("finetune path: not the full-width bf16 ViT-Small + 6-layer NRTR "
+                         "configuration with dropout and drop path 0.1 at batch 288")
+    state = init_finetune_state(model, seed=SEED)
+    raw, targets = finetune_inputs(BATCH, seed=654, max_seq_len=config.decoder_max_seq_len)
+    # the shipped schedule, except its length: warm-up and cosine cut to this
+    # run's few steps so that the learning rate is not ~0 throughout
+    step = make_fused_finetune_step(
+        aug_fn=supervised_augment, base_lr=float(config.lr), min_lr=float(config.min_lr),
+        total_iters=1000, warmup_iters=3, weight_decay=float(config.weight_decay),
+        clip_grad=config.clip_grad)
+
+    # the same state once more, for the same first step through the plain versions
+    twin = FinetuneState(model=copy.deepcopy(model), opt_state=copy.deepcopy(state.opt_state),
+                         iteration=0, generator=torch.Generator(device="cuda"),
+                         aug_generator=torch.Generator(device="cuda"))
+    twin.generator.set_state(state.generator.get_state())
+    twin.aug_generator.set_state(state.aug_generator.get_state())
+    weights0 = [p.detach().clone() for p in model.parameters()]
+
+    def run_step(st):
+        """One step, timed with CUDA events; the launches it made are checked."""
+        before = kernel_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        st, metrics = step(st, raw, targets)
+        b.record()
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in kernel_counts().items()}
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            raise SystemExit(f"finetune path: the loss is not finite: {loss}")
+        return loss, made, a.elapsed_time(b)
+
+    reset_kernel_counts()
+    first, made, _ = run_step(state)
+    if made != FT_LAUNCHES_PER_STEP:
+        raise SystemExit(f"finetune path: step launched {made}, expected {FT_LAUNCHES_PER_STEP}")
+
+    # ---- the first step again from the same state and draws, plain versions
+    counts = kernel_counts()
+    with plain_versions_in_place_of_kernels():
+        plain, made, _ = run_step(twin)
+    if any(made.values()) or kernel_counts() != counts:
+        raise SystemExit(f"finetune path: the plain-version step launched kernels: {made}")
+    loss_rel = abs(first - plain) / abs(plain)
+    mu, mu_plain = (torch.cat([m.flatten() for m in st.opt_state.mu]) for st in (state, twin))
+    grad_rel = float((mu - mu_plain).norm() / mu_plain.norm())
+    if not loss_rel <= TOL_STEP_LOSS_REL:
+        raise SystemExit(f"finetune path: kernel and plain steps' losses differ by {loss_rel} "
+                         f"> {TOL_STEP_LOSS_REL}")
+    if not grad_rel <= TOL_STEP_GRAD_REL or not float(mu_plain.norm()) > 0:
+        raise SystemExit(f"finetune path: kernel and plain steps' gradients differ by "
+                         f"{grad_rel} in L2 > {TOL_STEP_GRAD_REL}")
+    del twin, mu, mu_plain
+    torch.cuda.empty_cache()
+
+    # ---- more steps
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], [first]
+    for _ in range(FT_STEPS):
+        loss, made, ms = run_step(state)
+        if made != FT_LAUNCHES_PER_STEP:
+            raise SystemExit(f"finetune path: step launched {made}, expected "
+                             f"{FT_LAUNCHES_PER_STEP}")
+        step_ms.append(ms)
+        losses.append(loss)
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    # ---- where a step's time goes: CUDA events around the step's phases
+    PhaseEvents.records = []
+    marker = finetune_step_mod._phase
+    finetune_step_mod._phase = PhaseEvents
+    try:
+        _, made, phased_ms = run_step(state)
+    finally:
+        finetune_step_mod._phase = marker
+    phases = dict.fromkeys(FT_PHASES, 0.0)
+    for name, a, b in PhaseEvents.records:
+        phases[name] += a.elapsed_time(b)
+    # ---- and how busy the card is during one step (the profiler slows the host side)
+    prof_wall, busy, top, n_kernels = device_busy(lambda: step(state, raw, targets))
+    n_steps = FT_STEPS + 3
+    launches = kernel_counts()
+    if launches != {k: v * n_steps for k, v in FT_LAUNCHES_PER_STEP.items()} \
+            or state.iteration != n_steps:
+        raise SystemExit(f"finetune path: {launches} launches over {state.iteration} steps")
+    # after the count: its launches are not the path's
+    augment = augmentation_alone(raw, supervised_augment, "supervised_augment")
+
+    moved = max(float((p.detach() - p0).abs().max())
+                for p, p0 in zip(model.parameters(), weights0))
+    if not moved > 0:
+        raise SystemExit("finetune path: the weights did not move")
+    median_ms = statistics.median(step_ms)
+    emit({"phase": "main_path", "path": "finetune", "gpu": card, "config": "ccd_finetune_ard.yaml",
+          "arch": "vit_small + 6-layer NRTR", "dtype": "bfloat16", "batch": BATCH,
+          "dropout": 0.1, "drop_path": 0.1, "augmentation": "supervised_augment",
+          "steps": n_steps, "launches_per_step": FT_LAUNCHES_PER_STEP,
+          "kernel_launches": launches, "step_ms_median": median_ms,
+          "images_per_s": BATCH / median_ms * 1e3, "step_ms": step_ms,
+          "phases_ms": phases, "phased_step_ms": phased_ms,
+          "peak_device_memory_bytes": peak_bytes,
+          "profiled_step_wall_ms": prof_wall, "profiled_device_busy_ms": busy,
+          "profiled_device_idle_share": None if busy is None else 1.0 - busy / prof_wall,
+          "profiled_kernel_launches": n_kernels, "profiled_top_kernels": top,
+          "augmentation_alone": augment,
+          "first_step_loss": first, "first_step_loss_plain_versions": plain,
+          "first_step_loss_rel_diff": loss_rel, "tol_step_loss_rel": TOL_STEP_LOSS_REL,
+          "first_step_grad_rel_l2_diff": grad_rel, "tol_step_grad_rel": TOL_STEP_GRAD_REL,
+          "losses": losses, "weights_moved_max_abs": moved})
+    if augment["host_synchronisations"]:
+        raise SystemExit("augmentation: supervised_augment waits for the card "
+                         f"{augment['host_synchronisations']} times; it must not")
+    return launches
+
+
+def train_cli_phase(card: str, keep_dir: str) -> str:
     """``python -m ccd_tpu_torch.cli.train`` on the full ViT-Small pretraining
     configuration over a synthetic LMDB of rendered words with masks (written
     by the CLI's ``--synthetic`` into a temporary directory): CLI_ITERS
@@ -850,7 +1087,8 @@ def train_cli_phase(card: str) -> dict:
     loop that issues the step's launches). The configuration is the shipped
     one but for ``show_iters`` = 8, so that each dispatch is logged and
     checked for a NaN loss. Each run's rate after its first dispatch comes
-    from the log's timestamps."""
+    from the log's timestamps. The resumed run's last checkpoint is moved
+    into ``keep_dir``; returns its path."""
     import re
     from datetime import datetime
 
@@ -905,12 +1143,102 @@ def train_cli_phase(card: str) -> dict:
                              batch * (it_last - it_first) / (t_last - t_first).total_seconds(),
                          "logged_losses": [x[2] for x in logged], "process_wall_s": wall,
                          "checkpoint": os.path.basename(ckpt)})
+            if resumes:  # the finetune CLI starts from this run's teacher
+                kept = os.path.join(keep_dir, "pretrain_" + os.path.basename(ckpt))
+                os.replace(ckpt, kept)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    result = {"phase": "train_cli", "gpu": card, "config": "ccd_pretrain_vit_small.yaml",
-              "words": CLI_WORDS, "batch": batch, "steps_per_dispatch": k, "runs": runs}
+    emit({"phase": "train_cli", "gpu": card, "config": "ccd_pretrain_vit_small.yaml",
+          "words": CLI_WORDS, "batch": batch, "steps_per_dispatch": k, "runs": runs})
+    return kept
+
+
+def train_finetune_cli_phase(card: str, pretrain_checkpoint: str) -> dict:
+    """``python -m ccd_tpu_torch.cli.train_finetune`` on the shipped
+    ``ccd_finetune_ard.yaml`` over synthetic LMDBs (the CLI's ``--synthetic``:
+    FT_CLI_WORDS training words, a quarter as many test words), its backbone
+    handed over from ``pretrain_checkpoint`` (the ``train`` CLI's teacher):
+    FT_CLI_ITERS iterations in dispatches of 8 with an evaluation every
+    FT_CLI_EVAL_ITERS, a checkpoint, the best payload and the evaluation log,
+    then a second run in the same directory that resumes and goes on to
+    FT_CLI_RESUMED_ITERS. The configuration is the shipped one but for
+    ``show_iters`` = 8, ``eval_iters`` and the pretrain checkpoint's path.
+    The weights are untrained, so the accuracy is read, not judged."""
+    import re
+
+    import yaml
+    with open(CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    k = int(cfg["training"]["steps_per_dispatch"])
+    cfg["training"].update(show_iters=k, eval_iters=FT_CLI_EVAL_ITERS)
+    cfg["model"]["pretrain_checkpoint"] = pretrain_checkpoint
+    batch = int(cfg["dataset"]["train"]["batch_size"])
+    tmp = tempfile.mkdtemp(prefix="ccd_chip_smoke_ft_cli_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(PKG_DIR)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    runs = []
+    try:
+        cfg_path = os.path.join(tmp, "finetune.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        run_dir = os.path.join(cfg["output_dir"], cfg["global"]["name"])
+        for max_iters, resumes in ((FT_CLI_ITERS, False), (FT_CLI_RESUMED_ITERS, True)):
+            cmd = [sys.executable, "-m", "ccd_tpu_torch.cli.train_finetune", "-c", cfg_path,
+                   "--synthetic", str(FT_CLI_WORDS), "--max_iters", str(max_iters)]
+            t0 = time.time()
+            proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.time() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise SystemExit(f"train_finetune CLI exited with {proc.returncode}:\n"
+                                 f"{log[-4000:]}")
+            rate = re.search(r"\(([0-9.]+) img/s with data loading\)", log)
+            losses = [float(x) for x in re.findall(r"train loss:(\S+) ", log)]
+            accuracy = [float(x) for x in re.findall(r"total_accuracy: ([0-9.]+)", log)]
+            ckpt = os.path.join(tmp, run_dir, f"ckpt_{max_iters:08d}.pt")
+            best = os.path.join(tmp, run_dir, "best_accuracy.pt")
+            with open(os.path.join(tmp, run_dir, "log_all_evaluation.txt")) as f:
+                evaluations = f.read().count("total_accuracy:")
+            resumed = f"resuming mid-run from ./saved_models/{cfg['global']['name']} " \
+                      f"step {FT_CLI_ITERS}" in log
+            handed_over = "Read pretrain vision model from" in log
+            if rate is None or len(losses) != max_iters // k - (FT_CLI_ITERS // k if resumes
+                                                                 else 0) \
+                    or not all(np.isfinite(losses)) or not accuracy \
+                    or not os.path.isfile(ckpt) or not os.path.isfile(best) \
+                    or resumed != resumes or not handed_over:
+                raise SystemExit(f"train_finetune CLI to {max_iters}: no rate, a missing or "
+                                 f"non-finite loss, no evaluation, checkpoint or best payload, "
+                                 f"a wrong resume ({resumed}) or no hand-off:\n{log[-4000:]}")
+            runs.append({"max_iters": max_iters, "resumed_from": FT_CLI_ITERS if resumed else 0,
+                         "images_per_s_with_loading": float(rate.group(1)),
+                         "logged_losses": losses, "total_accuracy_lines": accuracy,
+                         "evaluations_logged_so_far": evaluations, "process_wall_s": wall,
+                         "checkpoint": os.path.basename(ckpt)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {"phase": "train_finetune_cli", "gpu": card, "config": "ccd_finetune_ard.yaml",
+              "words": FT_CLI_WORDS, "test_words": FT_CLI_WORDS // 4, "batch": batch,
+              "steps_per_dispatch": k, "eval_iters": FT_CLI_EVAL_ITERS,
+              "pretrain_checkpoint": os.path.basename(pretrain_checkpoint), "runs": runs}
     emit(result)
     return result
+
+
+def calibrate_phase(card: str) -> dict:
+    """``cli.calibrate`` in process at CALIBRATE_ITERS calls per row: its
+    rows and the measured peaks; the launch counts are read around it."""
+    import io
+    buffer = io.StringIO()
+    with contextlib.redirect_stdout(buffer):
+        result = calibrate.main(["--iters", str(CALIBRATE_ITERS)])
+    launches = kernel_counts()
+    if not launches["K1b-fwd"] > 0 or not launches["K1b-bwd"] > 0 or not launches["K1-fwd"] > 0:
+        raise SystemExit(f"calibrate: an attention row ran no kernel: {launches}")
+    emit({"phase": "calibrate", "gpu": card, "kernel_launches": launches,
+          **{k: v for k, v in result.items() if k != "kernel_launches"}})
+    return dict(result, launches=launches)
 
 
 def kernel_entry(name, source, replaces, launches, head, variants, **extra):
@@ -958,6 +1286,12 @@ def main() -> None:
     bwd = [check_attention_bwd(shape, dtype, with_bias, gen)
            for shape in (train_shape, small) for dtype in (bf16, f32)
            for with_bias in (True, False)]
+    bwd.append(check_attention_bwd(eval_shape, bf16, True, gen))  # the finetune step's shape
+    folded = (6 * 2 * PRETRAIN_BATCH, 256, 64)                     # (768, 256, 64): calibrate's
+    flash = [check_flash(folded, bf16, gen), check_flash(folded, f32, gen),
+             check_flash((8, 64, 32), bf16, gen), check_flash((8, 64, 32), f32, gen),
+             check_flash((2 * PRETRAIN_BATCH, 256, 6, 64), bf16, gen)]
+    flash_fwd, flash_bwd = [c[0] for c in flash], [c[1] for c in flash]
     rows, width = 2 * PRETRAIN_BATCH * 26, 65536
     ce = [check_fused_ce(rows, width, bf16, True, gen),
           check_fused_ce(rows, width, f32, True, gen)]
@@ -971,12 +1305,19 @@ def main() -> None:
 
     zeros = lambda *shape, dtype=bf16: torch.zeros(shape, device="cuda", dtype=dtype)
     bad_attention = [(1, 100, 3 * 64), (1, 64, 3 * 48), (1, 4096, 3 * 64)]  # S, D, shared memory
+    bad_flash = [(1, 100, 64), (1, 64, 48), (1, 4096, 64)]
     refused = {
         "K1-fwd": count_refusals("packed attention", [
             (lambda sh=sh: mha_packed_bias(zeros(*sh), None, 1.0, 1)) for sh in bad_attention]),
         "K1-bwd": count_refusals("packed attention backward", [
             (lambda sh=sh: mha_packed_bias_bwd(zeros(*sh), None, zeros(sh[0], sh[1], sh[2] // 3),
                                                1.0, 1)) for sh in bad_attention]),
+        "K1b-fwd": count_refusals("flash attention", [
+            (lambda sh=sh: flash_attention(zeros(*sh), zeros(*sh), zeros(*sh), 1.0))
+            for sh in bad_flash]),
+        "K1b-bwd": count_refusals("flash attention backward", [
+            (lambda sh=sh: flash_attention_bwd(zeros(*sh), zeros(*sh), zeros(*sh), zeros(*sh),
+                                               1.0)) for sh in bad_flash]),
         "K2": count_refusals("fused CE", [
             lambda: fused_dino_row_ce(zeros(4, 64), zeros(4, 64, dtype=f32), zeros(1, 64)),
             lambda: fused_dino_row_ce(zeros(3, 64), zeros(3, 64), zeros(1, 64), swap_halves=True),
@@ -992,39 +1333,69 @@ def main() -> None:
             lambda: bilateral_filter_fused(zeros(2, 8, 8, 3, dtype=f32), zeros(2, dtype=f32),
                                            zeros(2, dtype=f32), zeros(2, dtype=f32), 6)])}
     emit({"phase": "kernel_checks", "gpu": card, "refused_unsupported": refused,
-          "passed": {"K1-fwd": len(fwd), "K1-bwd": len(bwd), "K2-fwd": len(ce_fwd),
-                     "K2-bwd": len(ce_bwd), "K3": len(bil)},  # numbers: the kernels line
-          "bounds_of_kernels_still_to_port": unported_kernel_bounds(PRETRAIN_BATCH)})
+          "passed": {"K1-fwd": len(fwd), "K1-bwd": len(bwd), "K1b-fwd": len(flash_fwd),
+                     "K1b-bwd": len(flash_bwd), "K2-fwd": len(ce_fwd), "K2-bwd": len(ce_bwd),
+                     "K3": len(bil)}})  # numbers: the kernels line
 
-    # ---- the two main paths at full width, launch counts read around each
+    # ---- the main paths, launch counts set to 0 just before each and read just after
+    reset_kernel_counts()
+    calib = calibrate_phase(card)
+    calib_launches = calib["launches"]
     reset_kernel_counts()
     eval_launches = evaluation_path(card)
     reset_kernel_counts()
     train_launches = pretrain_path(card)
-    train_cli_phase(card)
+    reset_kernel_counts()
+    ft_launches = finetune_path(card)
+    keep = tempfile.mkdtemp(prefix="ccd_chip_smoke_keep_")
+    try:
+        train_finetune_cli_phase(card, train_cli_phase(card, keep))
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
+    # the K1b bounds once more at the copy rate the calibration measured
+    measured_rate = calib["measured_copy_gb_per_s"] * 1e9
+    for head in flash_fwd + flash_bwd:
+        head["bound_ms_at_measured_copy_rate"] = roofline(
+            head["bytes"], head["flops"], getattr(torch, head["dtype"]), measured_rate)[0]
+    k1_fwd = {"evaluation": eval_launches, "pretrain": train_launches["K1-fwd"],
+              "finetune": ft_launches["K1-fwd"], "calibrate": calib_launches["K1-fwd"]}
+    k1_bwd = {"pretrain": train_launches["K1-bwd"], "finetune": ft_launches["K1-bwd"]}
     emit({"kernels": [
         kernel_entry("K1-fwd packed_attention_forward (mha_packed_bias)",
                      "ccd_tpu_torch/csrc/packed_attention.cu",
-                     "ccd_tpu/ops/flash_attention.py:217",
-                     eval_launches + train_launches["K1-fwd"], fwd[0], fwd,
-                     launches_by_path={"evaluation": eval_launches,
-                                       "pretrain": train_launches["K1-fwd"]}),
+                     "ccd_tpu/ops/flash_attention.py:217", sum(k1_fwd.values()), fwd[0], fwd,
+                     launches_by_path=k1_fwd),
         kernel_entry("K1-bwd packed_attention_backward (mha_packed_bias_bwd)",
                      "ccd_tpu_torch/csrc/packed_attention_bwd.cu",
-                     "ccd_tpu/ops/flash_attention.py:241", train_launches["K1-bwd"],
-                     bwd[0], bwd),
+                     "ccd_tpu/ops/flash_attention.py:241", sum(k1_bwd.values()), bwd[0], bwd,
+                     launches_by_path=k1_bwd),
+        kernel_entry("K1b-fwd flash_attention_forward (flash_attention, mha)",
+                     "ccd_tpu_torch/csrc/packed_attention.cu",
+                     "ccd_tpu/ops/flash_attention.py:80", calib_launches["K1b-fwd"],
+                     flash_fwd[0], flash_fwd,
+                     launches_by_path={"calibrate": calib_launches["K1b-fwd"]},
+                     bound_ms_at_measured_copy_rate=flash_fwd[0]["bound_ms_at_measured_copy_rate"],
+                     measured_copy_gb_per_s=calib["measured_copy_gb_per_s"]),
+        kernel_entry("K1b-bwd flash_attention_backward (flash_attention_bwd)",
+                     "ccd_tpu_torch/csrc/packed_attention_bwd.cu",
+                     "ccd_tpu/ops/flash_attention.py:97", calib_launches["K1b-bwd"],
+                     flash_bwd[0], flash_bwd,
+                     launches_by_path={"calibrate": calib_launches["K1b-bwd"]},
+                     bound_ms_at_measured_copy_rate=flash_bwd[0]["bound_ms_at_measured_copy_rate"],
+                     measured_copy_gb_per_s=calib["measured_copy_gb_per_s"]),
         kernel_entry("K2-fwd fused_dino_ce_forward (fused_dino_row_ce)",
                      "ccd_tpu_torch/csrc/fused_dino_ce.cu",
                      "ccd_tpu/ops/fused_dino_ce.py:147", train_launches["K2-fwd"],
-                     ce_fwd[0], ce_fwd),
+                     ce_fwd[0], ce_fwd, launches_by_path={"pretrain": train_launches["K2-fwd"]}),
         kernel_entry("K2-bwd fused_dino_ce_backward (fused_dino_row_ce, backward)",
                      "ccd_tpu_torch/csrc/fused_dino_ce.cu",
                      "ccd_tpu/ops/fused_dino_ce.py:215", train_launches["K2-bwd"],
-                     ce_bwd[0], ce_bwd),
+                     ce_bwd[0], ce_bwd, launches_by_path={"pretrain": train_launches["K2-bwd"]}),
         kernel_entry("K3 bilateral_filter_forward (bilateral_filter_fused)",
                      "ccd_tpu_torch/csrc/bilateral.cu",
                      "ccd_tpu/data/aug_ops.py:995", train_launches["K3"], bil[0], bil,
+                     launches_by_path={"pretrain": train_launches["K3"]},
                      wrapper_call_ms=bil[0]["wrapper_call_ms"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

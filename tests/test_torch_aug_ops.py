@@ -40,6 +40,15 @@ taken by cofactors here, by LU in JAX: measured 2.4e-7); the warped image to
 ``pretrain_views``: theta as above; the ImageNet-normalised views (values up
 to ~2.6) to 1e-4 on at least 99 % of the entries (measured 100 % on keys 0
 and 2; on key 1 a k-means tie in one view moves 0.24 % of the entries).
+
+The finetune chain's pieces: ``op_channel_shuffle`` exactly (a gather here,
+a one-hot product at HIGHEST precision in JAX: both move the values
+unchanged); ``_random_affine_matrix`` to 1e-6, as theta above;
+``_elastic_grid`` to 1e-6 (the cubic upsampling, as ``jax_image_resize``).
+``supervised_augment`` on two keys, against the JAX chain run op by op (its
+jitted form would compile the whole chain for one call): 1e-4 on at least
+99 % of the values, the limit of the pretraining views, for the same reasons
+(a rounding op of the big OneOf, and the final warp's sampling positions).
 """
 
 import numpy as np
@@ -167,6 +176,7 @@ def test_bilateral_wrapper_takes_the_plain_version_on_the_cpu_and_checks_its_inp
     ((4, 4, 12, 1), (4, 32, 128, 1), "cubic"),     # clouds octaves
     ((4, 4, 19, 3), (4, 32, 128, 3), "nearest"),   # coarse dropout
     ((3, 32, 128, 2), (3, 8, 32, 2), "linear"),    # a 4x downsample
+    ((4, 4, 8, 2), (4, 32, 128, 2), "cubic"),      # the elastic grid's upsampling
 ])
 def test_jax_image_resize_matches_jax(shape, out, method):
     x = np.random.default_rng(0).uniform(size=shape).astype(np.float32)
@@ -242,3 +252,49 @@ def test_pretrain_views_match_jax(chain_images, seed):
                                ((chain_images - TG.IMAGENET_MEAN) / TG.IMAGENET_STD), atol=1e-6)
     torch.testing.assert_close(TG.denormalize(got_views[:, 0]), torch.from_numpy(chain_images),
                                rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------- the finetune chain
+
+def test_channel_shuffle_matches_jax_exactly(chain_images):
+    key = jax.random.PRNGKey(5)
+    want = np.asarray(JA.op_channel_shuffle(key, jnp.asarray(chain_images), p=0.5))
+    got = TA.op_channel_shuffle(JaxKey(key), torch.from_numpy(chain_images), p=0.5).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, chain_images)  # some sample was shuffled
+
+
+@pytest.mark.parametrize("params", [{}, dict(scale=(1.0, 1.0), translate=0.0, rotate=45.0,
+                                             shear_x=0.0, shear_y=0.0)],
+                         ids=["affine", "rotation"])
+def test_random_affine_matrix_matches_jax(params):
+    key = jax.random.PRNGKey(11)
+    want = np.asarray(JG._random_affine_matrix(key, 4, 32, 128, **params))
+    got = TG._random_affine_matrix(JaxKey(key), 4, 32, 128, **params).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def test_elastic_grid_matches_jax():
+    key = jax.random.PRNGKey(12)
+    scale = np.linspace(0.02, 0.2, 4, dtype=np.float32).reshape(4, 1, 1, 1)
+    want = np.asarray(JG._elastic_grid(key, 4, 32, 128, jnp.asarray(scale)))
+    got = TG._elastic_grid(JaxKey(key), 4, 32, 128, torch.from_numpy(scale)).numpy()
+    assert got.shape == (4, 32, 128, 2)
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_supervised_augment_matches_jax(chain_images, seed):
+    key = jax.random.PRNGKey(seed)
+    jax_chain = getattr(JG.supervised_augment, "__wrapped__", JG.supervised_augment)
+    want = np.asarray(jax_chain(key, jnp.asarray(chain_images)))
+    got = TG.supervised_augment(JaxKey(key), torch.from_numpy(chain_images)).numpy()
+    assert got.shape == chain_images.shape and np.isfinite(got).all()
+    diff = np.abs(got - want)
+    assert (diff > 1e-4).mean() <= 0.01, (diff > 1e-4).mean()
+    assert not np.allclose(got, chain_images, atol=1e-3)  # the chain changed something
+
+
+def test_abinet_augment_is_refused(chain_images):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TG.abinet_augment(JaxKey(jax.random.PRNGKey(0)), torch.from_numpy(chain_images))

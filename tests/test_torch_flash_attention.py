@@ -1,6 +1,7 @@
-"""The port's packed attention (plain versions, the CPU path of the wrapper)
+"""The port's attention (plain versions, the CPU path of the wrappers)
 against the JAX package's Pallas kernels run in interpret mode, forward and
-backward.
+backward: the packed layout (K1, ``mha_packed_bias``) and the folded and
+(B, S, H, D) layouts (K1b, ``flash_attention`` and ``mha``).
 
 Tolerance 2e-5 absolute on O(1) outputs in fp32: the two sides sum the same
 products in a different order. Gradients: 1e-4 (they sum over 256 rows).
@@ -23,6 +24,7 @@ from ccd_tpu_torch.ops import flash_attention as tfa
 ATOL = 2e-5
 GRAD_ATOL = 1e-4
 SHAPES = [(2, 32, 3, 8), (2, 256, 2, 32)]  # (b, s, h, d)
+FOLDED = [(4, 64, 32), (2, 32, 16)]       # (bh, s, d)
 
 
 @pytest.fixture
@@ -191,6 +193,98 @@ def test_cpu_path_does_not_touch_the_build_machinery():
     tfa.mha_packed_bias(torch.from_numpy(qkv), torch.from_numpy(bias), scale, 2)
     tfa.mha_packed(torch.from_numpy(qkv), scale, 2)
     tfa.mha_packed(torch.from_numpy(qkv).requires_grad_(), scale, 2).sum().backward()
+    q = torch.randn(2, 64, 32, requires_grad=True)
+    tfa.flash_attention(q, q, q, 0.2).sum().backward()
+    q4 = torch.randn(1, 64, 2, 32, requires_grad=True)
+    tfa.mha(q4, q4, q4, 0.2).sum().backward()
     assert "ccd_tpu_torch.ops._build" not in sys.modules
     assert tfa.mha_packed_bias.launches == before
     assert tfa.mha_packed_bias_bwd.launches == 0
+    assert tfa.flash_attention.launches == tfa.flash_attention_bwd.launches == 0
+    assert tfa.mha.launches == 0
+
+
+
+# ------------------------------------------------- K1b: folded and (B, S, H, D)
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(4)]  # q, k, v, w
+
+
+def _jax_flash_grads(jfn, q, k, v, w, scale):
+    loss = lambda a, b, c: jnp.sum(jfn(a, b, c, scale) * w)
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+@pytest.mark.parametrize("layout,shape", [("folded", s) for s in FOLDED] +
+                         [("bshd", (2, 16, 3, 8))], ids=lambda x: str(x))
+def test_k1b_matches_pallas_forward_and_backward(interpret_mode, layout, shape):
+    """flash_attention on (BH, S, D) and mha on (B, S, H, D): the forward, the
+    written-out backward and autograd through the wrapper, against the Pallas
+    kernels (mha through its transposes in JAX, none here)."""
+    jfn, tfn = (fa.flash_attention, tfa.flash_attention) if layout == "folded" else \
+        (fa.mha, tfa.mha)
+    q, k, v, w = _qkv(shape, 12)
+    scale = shape[-1] ** -0.5
+    ref = np.asarray(jfn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
+    tq, tk, tv, tw = (torch.from_numpy(a) for a in (q, k, v, w))
+    plain = tfa.flash_attention_plain(tq, tk, tv, scale)
+    np.testing.assert_allclose(plain.numpy(), ref, atol=ATOL)
+    ref_grads = _jax_flash_grads(jfn, q, k, v, w, scale)
+    written = tfa.flash_attention_bwd_plain(tq, tk, tv, tw, scale)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = tfn(*leaves, scale)
+    # the wrapper on a CPU tensor is the plain version, forward and backward
+    np.testing.assert_array_equal(out.detach().numpy(), plain.numpy())
+    (out * tw).sum().backward()
+    wrapper_bwd = tfa.flash_attention_bwd(tq, tk, tv, tw, scale)
+    for name, want, got, leaf, wb in zip("qkv", ref_grads, written, leaves, wrapper_bwd):
+        np.testing.assert_allclose(got.numpy(), want, atol=GRAD_ATOL, err_msg=f"d{name}")
+        np.testing.assert_array_equal(leaf.grad.numpy(), got.numpy())
+        np.testing.assert_array_equal(wb.numpy(), got.numpy())
+
+
+def test_k1b_bf16_plain_rounds_like_the_kernel():
+    """bf16 q, k, v: fp32 logits and softmax, p rounded before p @ v, one
+    rounding of the output; in the backward dS rounded before dq and dk, p
+    before dv. Spelled out here so the plain versions cannot drift."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _qkv((3, 64, 32), 13))
+    scale = 32 ** -0.5
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, do))
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale, -1)
+    out = tfa.flash_attention_plain(q, k, v, scale)
+    assert out.dtype == torch.bfloat16 and out.shape == (3, 64, 32)
+    want = (p.bfloat16().float() @ vf).bfloat16()
+    np.testing.assert_allclose(out.float().numpy(), want.float().numpy(), atol=8e-3)
+    dp = gf @ vf.transpose(-1, -2)
+    ds = ((p * (dp - (dp * p).sum(-1, keepdim=True))) * scale).bfloat16().float()
+    wants = (ds @ kf, ds.transpose(-1, -2) @ qf, p.bfloat16().float().transpose(-1, -2) @ gf)
+    for got, want in zip(tfa.flash_attention_bwd_plain(q, k, v, do, scale), wants):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want.bfloat16().float().numpy(),
+                                   atol=2 ** -6)
+    # (B, S, H, D) is the folded computation on the heads, read where they lie
+    q4, k4, v4 = (x.reshape(1, 3, 64, 32).permute(0, 2, 1, 3) for x in (q, k, v))
+    np.testing.assert_array_equal(
+        tfa.flash_attention_plain(q4, k4, v4, scale).permute(0, 2, 1, 3).reshape(3, 64, 32)
+        .float().numpy(), out.float().numpy())
+
+
+@pytest.mark.parametrize("bad", ["ndim", "shapes", "dtype", "mixed", "mha_3d"])
+def test_k1b_wrappers_raise_on_wrong_input(bad):
+    q = k = v = torch.zeros(2, 64, 32)
+    fn = tfa.flash_attention
+    if bad == "ndim":
+        q = k = v = torch.zeros(64, 32)
+    elif bad == "shapes":
+        k = torch.zeros(2, 64, 16)
+    elif bad == "dtype":
+        q = k = v = q.double()
+    elif bad == "mixed":
+        v = v.bfloat16()
+    elif bad == "mha_3d":
+        fn = tfa.mha
+    with pytest.raises((ValueError, TypeError)):
+        fn(q, k, v, 0.125)

@@ -17,7 +17,9 @@ MODULES = ("ops.flash_attention", "ops.fused_dino_ce", "ops.image", "ops.pooling
            "models.vit", "losses.losses", "schedules", "training.optim",
            "training.pretrain_step", "builders", "checkpoints.from_jax", "cli.evaluate",
            "ops.bilateral", "data.random", "data.aug_ops", "data.augment", "data.dataset",
-           "data.pipeline", "utils.logging", "utils.meters", "checkpoints.torch_io", "cli.train")
+           "data.pipeline", "utils.logging", "utils.meters", "checkpoints.torch_io", "cli.train",
+           "training.finetune_step", "cli.train_finetune", "cli.calibrate",
+           "evaluation.runner", "models.recognizer", "models.nrtr")
 
 
 def _sources():
@@ -36,7 +38,7 @@ def test_fresh_interpreter_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(ccd_tpu_torch.__path__, 'ccd_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
-        "assert len(names) >= 49, names\n"
+        "assert len(names) >= 52, names\n"
         "for n in %r: assert 'ccd_tpu_torch.' + n in names, n\n"
         "print('BAD', bad)\n" % (FORBIDDEN, MODULES))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -104,6 +106,13 @@ def test_cuda_request_without_a_card_raises():
     with pytest.raises(RuntimeError):
         from ccd_tpu_torch.cli.train import main as train_main
         train_main(["-c", os.path.join(PKG, "configs", "smoke_pretrain.yaml"), "--synthetic", "4"])
+    with pytest.raises(RuntimeError):
+        from ccd_tpu_torch.cli.train_finetune import main as finetune_main
+        finetune_main(["-c", os.path.join(PKG, "configs", "smoke_finetune.yaml"),
+                       "--synthetic", "4"])
+    with pytest.raises(RuntimeError):
+        from ccd_tpu_torch.cli.calibrate import main as calibrate_main
+        calibrate_main(["--small"])
 
 
 def test_chip_smoke_fails_without_a_card():
