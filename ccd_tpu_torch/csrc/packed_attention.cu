@@ -19,124 +19,234 @@
 //
 // What bounds it on an H100: bytes. At (B, S, C, H) = (288, 256, 384, 6) in
 // bf16 one packed call must read 288*256*1152*2 B = 169.9 MB and write
-// 56.6 MB; at 3.35 TB/s that is 0.068 ms, while its 4*S*S*D*H*B = 29.0 GFLOP
-// take 0.029 ms at 989 TFLOP/s. A folded (768, 256, 64) call reads 75.5 MB
-// and writes 25.2 MB: 0.030 ms against 12.9 GFLOP, 0.013 ms. So the design
-// keeps everything but the inputs and the output out of device memory: one
-// block per (batch, head, tile of query rows) reads the head's q/k/v rows by
-// offset, adds the bias as the values are loaded, keeps the head's K and V in
-// shared memory, keeps the scores in registers (online softmax over 64-key
-// steps) and stores the output slab through shared memory in 16-byte rows.
-// The K and V rows of a head are read once per query tile; the tiles of one
+// 56.6 MB (226.5 MB); at 3.35 TB/s that is 0.068 ms, while its
+// 4*S*S*D*H*B = 29.0 GFLOP take 0.029 ms at 989 TFLOP/s. A folded
+// (768, 256, 64) call reads 75.5 MB and writes 25.2 MB: 0.030 ms against
+// 12.9 GFLOP, 0.013 ms. So the kernel must keep the memory system busy from
+// its first cycle and touch nothing but the inputs and the output.
+//
+// bf16 kernel (the design):
+//   * one warpgroup (128 threads) per 64 query rows, two per block where
+//     S % 128 == 0, so each K/V chunk in shared memory serves 128 rows;
+//   * K and V stream through a ring of STAGES = 3 shared-memory stages of
+//     64 keys each, filled by 16-byte `cp.async.cg` copies: chunks j + 1 and
+//     j + 2 are in flight while chunk j's products run. Shared memory no
+//     longer grows with S (65 KB a block at D = 64, where the whole head
+//     took 92 KB); registers (about 128 a thread) allow two 256-thread
+//     blocks an SM, so one block's loads overlap the other's products. Each
+//     thread's copy offsets are computed once (the swizzle's phase is the
+//     same for all its rows), so a copy costs an add and the instruction:
+//     at these shapes the kernel is bound as much by instructions issued as
+//     by bytes. (A persistent grid, each block walking tiles with the next
+//     tile's Q and chunks in flight during the last ones, measured slower:
+//     more registers and shared memory a block for no better overlap. TMA
+//     would save the copy instructions but needs three kinds of tensor map
+//     and an mbarrier that hangs on a wrong byte count: left for later.)
+//   * both products are `wgmma` with A in registers: S = Q K^T as
+//     m64n64k16 (Q's fragments loaded once per tile), O += P V as m64nDk16
+//     with P converted in registers from S's accumulator and V read through
+//     the descriptor's transpose bit (attention_sm90.cuh);
+//   * online softmax in registers (running maximum and sum, rescale of O)
+//     in log2 units: the scale folded into the FFMA before `ex2.approx`;
+//     P V runs in two halves of 32 keys, the first half's products while
+//     the second half's exponentials are computed;
+//   * bias folded in algebraically, exact in real arithmetic: bq is added to
+//     Q's fragments (fp32 add, one rounding, as a bf16 tensor add rounds);
+//     bk adds (q + bq) . bk to every logit of a row, which the softmax
+//     cancels, so it is not read; bv comes out as + bv after the
+//     normalisation, since each row of P sums to 1. Only rounding points move
+//     (the plain version rounds k + bk and v + bv to bf16 first);
+//   * the output tile goes through this warp's rows of the Q tile in shared
+//     memory and out in 16-byte rows.
+// K and V rows of a head are read once per 128-row tile; the tiles of one
 // head are neighbours in the grid, so the repeats are served by the L2 cache.
 //
-// Two kernels:
-//   * bf16: tensor cores through `mma.sync.m16n8k16`; each warp owns 16 query
-//     rows. (`wgmma`, TMA and pipelining are left for a later change.)
-//   * fp32: scalar FMA, one query row per thread, K/V streamed through shared
-//     memory in 32-key chunks. Exact fp32 arithmetic (no TF32).
+// fp32 kernel: scalar FMA, one query row per thread, K/V streamed through
+// shared memory in 32-key chunks, biases added as they are loaded. Exact fp32
+// arithmetic (no TF32).
 //
 // Plain C interface, loaded with ctypes; see ccd_tpu_torch/ops/flash_attention.py.
 
 #include "attention_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
-constexpr int KEYS = 64;  // keys per online-softmax step (bf16 kernel)
+constexpr int KEYS = 64;    // keys per chunk, the online softmax's step
+constexpr int STAGES = 3;   // K/V chunks in shared memory: one read, two landing
+constexpr int MAX_DEVICES = 64;
 
-// grid (S / (16 * WARPS), H, B), block 32 * WARPS threads,
-// dynamic shared memory (16 * WARPS + 2 * S) * (D + PAD) * 2 bytes.
-template <int D, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS)
-attention_fwd_bf16(const FwdArgs<bf16> a, int S, float scale_log2e) {
-    constexpr int ROWS = 16 * WARPS;
-    constexpr int LD = D + PAD;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // ROWS x LD, later the output tile
-    bf16* Ks = Qs + ROWS * LD;                     // S x LD
-    bf16* Vs = Ks + (size_t)S * LD;                // S x LD
+// Dynamic shared memory of the bf16 kernel: 1024-byte alignment slack, the
+// Q tiles of WGS warpgroups (later the output), and STAGES x (K, V) chunks.
+template <int D, int WGS>
+constexpr size_t fwd_smem_bytes() {
+    return 1024 + (size_t)(WGS + 2 * STAGES) * KEYS * 2 * D;
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// (x + bias) for a pair of bf16: fp32 add, rounded once
+__device__ __forceinline__ uint32_t add_pair(uint32_t x, const bf16* bias) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias);
+    return pack_bf16(__low2float(v) + __low2float(b), __high2float(v) + __high2float(b));
+}
+
+// grid (S / (64 * WGS), H, B), block 128 * WGS threads, dynamic shared memory
+// fwd_smem_bytes<D, WGS>(). Warpgroup w owns query rows 64w..64w+63 of the
+// tile; within it warp i rows 16i..16i+15 (the wgmma fragment layout).
+template <int D, int WGS>
+__global__ void __launch_bounds__(128 * WGS, 4 / WGS)
+attention_fwd_sm90(const FwdArgs<bf16> a, int S, float scale_log2e) {
+    constexpr int NT = 128 * WGS;
+    constexpr int ROWS = 64 * WGS;
+    constexpr uint32_t TILE = KEYS * 2 * D;  // bytes of a 64-row tile
+    constexpr int R = D / 2;                 // O's accumulator registers per thread
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle's pattern needs 1024
+    unsigned char* const tile_ptr = smem_raw + (base - raw);  // Q tiles, then the output
+    const uint32_t ring = base + WGS * TILE;     // stage s: K at 2s tiles, V after it
 
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    load_tile<D>(Qs, a.q.at(b, h, (size_t)tile * ROWS), a.q.row_stride, ROWS,
-                 head_bias(a.bq, h, D));
-    load_tile<D>(Ks, a.k.at(b, h, 0), a.k.row_stride, S, head_bias(a.bk, h, D));
-    load_tile<D>(Vs, a.v.at(b, h, 0), a.v.row_stride, S, head_bias(a.bv, h, D));
+    const size_t ks = a.k.row_stride, vs = a.v.row_stride;
+    const bf16* kg = a.k.at(b, h, 0);
+    const bf16* vg = a.v.at(b, h, 0);
+    const int chunks = S / KEYS;
+    const TileCopy<D, NT> kc(ks), vc(vs);
+    auto load_chunk = [&](int n) {  // chunk n into its stage, as one copy group
+        if (n < chunks) {
+            const uint32_t st = ring + 2 * (n % STAGES) * TILE;
+            kc.template issue<KEYS>(st, kg + (size_t)n * KEYS * ks);
+            vc.template issue<KEYS>(st + TILE, vg + (size_t)n * KEYS * vs);
+        }
+        cp_async_commit();
+    };
+
+    TileCopy<D, NT>(a.q.row_stride).template issue<ROWS>(base, a.q.at(b, h, (size_t)tile * ROWS));
+    cp_async_commit();
+#pragma unroll
+    for (int n = 0; n < STAGES - 1; ++n) load_chunk(n);
+
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;   // fragment row group / column pair
+    const int r0 = wg * 64 + warp * 16 + g;  // this thread's rows r0 and r0 + 8 of the tile
+
+    // Q's A fragments for all of D, plus bq: loaded once
+    cp_async_wait<STAGES - 1>();
     __syncthreads();
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;  // fragment row group / column pair
-
-    // A fragments of this warp's 16 query rows, for all of D
     uint32_t qa[D / 16][4];
-    load_a_fragments<D>(qa, Qs + warp * 16 * LD, g, t);
-
-    float o[D / 8][4];
+    const bf16* bq = head_bias(a.bq, h, D);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) { o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f; }
-    float m0 = -INFINITY, m1 = -INFINITY;  // running maxima of rows g and g + 8
-    float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
-
-    for (int k0 = 0; k0 < S; k0 += KEYS) {
-        // scores of 16 rows x 64 keys, fp32
-        float s[KEYS / 8][4];
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-        for (int j = 0; j < KEYS / 8; ++j) { s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f; }
+        for (int e = 0; e < 4; ++e) {
+            const int col = kk * 16 + (e >> 1) * 8 + 2 * t;
+            uint32_t x = *reinterpret_cast<const uint32_t*>(
+                tile_ptr + swizzled_pair<D>(r0 + (e & 1) * 8, col));
+            qa[kk][e] = bq != nullptr ? add_pair(x, bq + col) : x;
+        }
+    }
+    // scores are maxed before they are scaled: a negative scale goes into Q
+    // (exact in bf16) and its magnitude into c
+    const float c = fabsf(scale_log2e);
+    if (scale_log2e < 0.f) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-            for (int j = 0; j < KEYS / 8; ++j) {
-                const bf16* kp = Ks + (size_t)(k0 + j * 8 + g) * LD + kk * 16 + 2 * t;
-                mma_bf16(s[j], qa[kk], ld32(kp), ld32(kp + 8));
-            }
+            for (int e = 0; e < 4; ++e) qa[kk][e] ^= 0x80008000u;
         }
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) fence_regs(qa[kk]);
+
+    float o[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running maxima of rows r0 and r0 + 8
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+
+    for (int j = 0; j < chunks; ++j) {
+        cp_async_wait<STAGES - 2>();  // this thread's copies of chunk j have landed
+        fence_proxy_async();          // ... and are visible to wgmma
+        __syncthreads();              // everyone's; and chunk j - 1's stage is free
+        load_chunk(j + STAGES - 1);
+        // descriptors of this chunk's K and V tiles; a 16-deep step of K is 32
+        // bytes along the row, one of V 16 rows (the start address is in
+        // 16-byte units in the descriptor's low bits)
+        const uint64_t kdesc = smem_desc<D>(ring + 2 * (j % STAGES) * TILE);
+        const uint64_t vdesc = kdesc + (TILE >> 4);
+
+        // S = Q K^T: 64 rows x 64 keys, fp32
+        float s[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            wgmma_rs<0>(s, qa[kk], kdesc + kk * (32 >> 4), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+
+        // online softmax in log2 units: maxima of the raw scores (c > 0),
+        // p = 2^(s c - m) with the scale folded into one FFMA
         float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < KEYS / 8; ++j) {
-            s[j][0] *= scale_log2e; s[j][1] *= scale_log2e;
-            s[j][2] *= scale_log2e; s[j][3] *= scale_log2e;
-            mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-            mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+        for (int i = 0; i < 8; ++i) {
+            mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+            mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
         }
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+        const float mn0 = fmaxf(m0, mx0 * c), mn1 = fmaxf(m1, mx1 * c);
+        const float alpha0 = exp2_ftz(m0 - mn0), alpha1 = exp2_ftz(m1 - mn1);
         m0 = mn0; m1 = mn1;
         l0 *= alpha0; l1 *= alpha1;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-            o[j][0] *= alpha0; o[j][1] *= alpha0;
-            o[j][2] *= alpha1; o[j][3] *= alpha1;
+        for (int i = 0; i < R / 4; ++i) {
+            o[4 * i] *= alpha0; o[4 * i + 1] *= alpha0;
+            o[4 * i + 2] *= alpha1; o[4 * i + 3] *= alpha1;
         }
+        fence_regs(o);
+
+        // O += P V in two halves of 32 keys: the first half's products run
+        // while the second half's exponentials are computed. P in bf16 is the
+        // A fragment of a 16-key step: the accumulator blocks of key octets
+        // 2kk and 2kk + 1 are step kk's fragment.
+        uint32_t pa[4][4];
 #pragma unroll
-        for (int j = 0; j < KEYS / 8; ++j) {
-            s[j][0] = exp2f(s[j][0] - m0); s[j][1] = exp2f(s[j][1] - m0);
-            s[j][2] = exp2f(s[j][2] - m1); s[j][3] = exp2f(s[j][3] - m1);
-            l0 += s[j][0] + s[j][1];
-            l1 += s[j][2] + s[j][3];
-        }
-        // O += P V: the score fragments of two key octets are the A fragment
-        // of one 16-key step; V's B fragments come transposed out of shared
-        // memory, two D octets per ldmatrix.
+        for (int half = 0; half < 2; ++half) {
 #pragma unroll
-        for (int kk = 0; kk < KEYS / 16; ++kk) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-            pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-            pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-            const bf16* vp = Vs + (size_t)(k0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
-                             + (lane >> 4) * 8;
-#pragma unroll
-            for (int jd = 0; jd < D / 16; ++jd) {
-                uint32_t vb[4];
-                ldmatrix_x4_trans(vb, vp + jd * 16);
-                mma_bf16(o[2 * jd], pa, vb[0], vb[1]);
-                mma_bf16(o[2 * jd + 1], pa, vb[2], vb[3]);
+            for (int i = 4 * half; i < 4 * half + 4; ++i) {
+                const float p0 = exp2_ftz(fmaf(s[4 * i], c, -m0));
+                const float p1 = exp2_ftz(fmaf(s[4 * i + 1], c, -m0));
+                const float p2 = exp2_ftz(fmaf(s[4 * i + 2], c, -m1));
+                const float p3 = exp2_ftz(fmaf(s[4 * i + 3], c, -m1));
+                l0 += p0 + p1;
+                l1 += p2 + p3;
+                pa[i >> 1][(i & 1) * 2] = pack_bf16(p0, p1);
+                pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
             }
+            fence_regs(pa[2 * half]);
+            fence_regs(pa[2 * half + 1]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
+                wgmma_rs<1>(o, pa[kk], vdesc + kk * (16 * 2 * D >> 4), 1);
+            }
+            wgmma_commit();
         }
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
     }
 
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -145,10 +255,31 @@ attention_fwd_bf16(const FwdArgs<bf16> a, int S, float scale_log2e) {
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 
-    // Each warp overwrites its own 16 rows of the Q tile (only it read them,
-    // and they are in registers now), then stores them 16 bytes a thread.
-    store_warp_tile<D>(Qs + warp * 16 * LD, a.o.at(b, h, (size_t)tile * ROWS + warp * 16),
-                       a.o.row_stride, o, inv0, inv1, lane);
+    // O / l + bv in bf16 over this warp's own 16 rows of the Q tile (only it
+    // read them, into registers), then out 16 bytes a thread
+    const bf16* bv = head_bias(a.bv, h, D);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + 2 * t;
+        float b0 = 0.f, b1 = 0.f;
+        if (bv != nullptr) {
+            const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bv + col);
+            b0 = __low2float(bb);
+            b1 = __high2float(bb);
+        }
+        *reinterpret_cast<uint32_t*>(tile_ptr + swizzled_pair<D>(r0, col)) =
+            pack_bf16(o[4 * i] * inv0 + b0, o[4 * i + 1] * inv0 + b1);
+        *reinterpret_cast<uint32_t*>(tile_ptr + swizzled_pair<D>(r0 + 8, col)) =
+            pack_bf16(o[4 * i + 2] * inv1 + b0, o[4 * i + 3] * inv1 + b1);
+    }
+    __syncwarp();
+    const int row0 = wg * 64 + warp * 16;
+    bf16* dst = a.o.at(b, h, (size_t)tile * ROWS + row0);
+    for (int i = lane; i < 16 * (D / 8); i += 32) {
+        const int r = i / (D / 8), c = i % (D / 8);
+        *reinterpret_cast<uint4*>(dst + (size_t)r * a.o.row_stride + c * 8) =
+            *reinterpret_cast<const uint4*>(tile_ptr + swizzled<D>(row0 + r, c));
+    }
 }
 
 constexpr int F32_ROWS = 64;  // query rows (= threads) per block, fp32 kernel
@@ -234,21 +365,6 @@ attention_fwd_f32(const FwdArgs<float> a, int S, float scale) {
     }
 }
 
-template <int D, int WARPS>
-int launch_bf16(const FwdArgs<bf16>& a, int B, int S, int H, float scale,
-                cudaStream_t stream) {
-    const size_t smem = (size_t)(16 * WARPS + 2 * S) * (D + PAD) * sizeof(bf16);
-    if (smem > SMEM_LIMIT) return -2;
-    cudaError_t err = cudaFuncSetAttribute(attention_fwd_bf16<D, WARPS>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(S / (16 * WARPS), H, B);
-    attention_fwd_bf16<D, WARPS><<<grid, 32 * WARPS, smem, stream>>>(
-        a, S, scale * 1.4426950408889634f);
-    return static_cast<int>(cudaGetLastError());
-}
-
 template <int D>
 int launch_f32(const FwdArgs<float>& a, int B, int S, int H, float scale,
                cudaStream_t stream) {
@@ -257,16 +373,63 @@ int launch_f32(const FwdArgs<float>& a, int B, int S, int H, float scale,
     return static_cast<int>(cudaGetLastError());
 }
 
+// Allows the bf16 kernel its dynamic shared memory, once per device.
+template <int D, int WGS>
+cudaError_t prepare_sm90() {
+    static bool ready[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess || (dev < MAX_DEVICES && ready[dev])) return err;
+    err = cudaFuncSetAttribute(attention_fwd_sm90<D, WGS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)fwd_smem_bytes<D, WGS>());
+    if (err == cudaSuccess && dev < MAX_DEVICES) ready[dev] = true;
+    return err;
+}
+
+template <int D, int WGS>
+int launch_sm90(const FwdArgs<bf16>& a, int B, int S, int H, float scale,
+                cudaStream_t stream) {
+    cudaError_t err = prepare_sm90<D, WGS>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(S / (64 * WGS), H, B);
+    attention_fwd_sm90<D, WGS><<<grid, 128 * WGS, fwd_smem_bytes<D, WGS>(), stream>>>(
+        a, S, scale * 1.4426950408889634f);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// out[0..4]: registers per thread, local (spill) bytes per thread, shared
+// memory per block (static + dynamic), resident blocks per SM, threads per block.
+template <int D, int WGS>
+int attributes_sm90(int* out) {
+    cudaError_t err = prepare_sm90<D, WGS>();
+    cudaFuncAttributes fa;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, attention_fwd_sm90<D, WGS>);
+    int blocks = 0;
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, attention_fwd_sm90<D, WGS>, 128 * WGS, fwd_smem_bytes<D, WGS>());
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.localSizeBytes;
+    out[2] = (int)(fa.sharedSizeBytes + fwd_smem_bytes<D, WGS>());
+    out[3] = blocks;
+    out[4] = 128 * WGS;
+    return 0;
+}
+
 template <typename T>
 int launch(const FwdArgs<T>& a, int B, int S, int H, int D, float scale, cudaStream_t st) {
     if (B > MAX_GRID_Z) return -3;
     if constexpr (sizeof(T) == 2) {
-        // 128-row tiles read K and V half as often; 64-row tiles take any S % 64 == 0
+        // 128-row tiles share each K/V chunk between two warpgroups; 64-row
+        // tiles take any S % 64 == 0
         const bool wide = (S % 128 == 0);
-        if (D == 64) return wide ? launch_bf16<64, 8>(a, B, S, H, scale, st)
-                                 : launch_bf16<64, 4>(a, B, S, H, scale, st);
-        if (D == 32) return wide ? launch_bf16<32, 8>(a, B, S, H, scale, st)
-                                 : launch_bf16<32, 4>(a, B, S, H, scale, st);
+        if (D == 64) return wide ? launch_sm90<64, 2>(a, B, S, H, scale, st)
+                                 : launch_sm90<64, 1>(a, B, S, H, scale, st);
+        if (D == 32) return wide ? launch_sm90<32, 2>(a, B, S, H, scale, st)
+                                 : launch_sm90<32, 1>(a, B, S, H, scale, st);
     } else {
         if (D == 64) return launch_f32<64>(a, B, S, H, scale, st);
         if (D == 32) return launch_f32<32>(a, B, S, H, scale, st);
@@ -301,10 +464,11 @@ int strided_forward(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // The entries below launch on `stream`, do not synchronise, and return the
-// CUDA error code of the launch (0 = success), -1 for an unsupported D, -2
-// when one head's K and V exceed shared memory, -3 when B exceeds the grid.
-// Tensors are of one type: is_bf16 = 1 for bfloat16, 0 for float32. D is 32
-// or 64 and S a multiple of 64; the caller checks both, and the alignment.
+// CUDA error code of the launch (0 = success), -1 for an unsupported D, -3
+// when B exceeds the grid. Tensors are of one type: is_bf16 = 1 for
+// bfloat16, 0 for float32. D is 32 or 64 and S a multiple of 64 (any size:
+// K and V stream through shared memory); the caller checks both, and the
+// alignment.
 
 // K1-fwd. qkv (B, S, 3*H*D) and out (B, S, H*D) contiguous, bias (3*H*D,) or null.
 extern "C" int packed_attention_forward(const void* qkv, const void* bias, void* out,
@@ -325,4 +489,14 @@ extern "C" int flash_attention_forward(const void* q, const void* k, const void*
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return is_bf16 ? strided_forward<bf16>(q, k, v, out, strides, B, S, H, D, scale, st)
                    : strided_forward<float>(q, k, v, out, strides, B, S, H, D, scale, st);
+}
+
+// Launch resources of the bf16 kernel for head dim D (32 or 64) with 128-row
+// (wide = 1) or 64-row tiles, into out[0..4]: registers per thread, local
+// (spill) bytes per thread, shared memory per block, resident blocks per SM,
+// threads per block. Returns 0, -1 for an unsupported D, or a CUDA error code.
+extern "C" int attention_forward_attributes(int D, int wide, int* out) {
+    if (D == 64) return wide ? attributes_sm90<64, 2>(out) : attributes_sm90<64, 1>(out);
+    if (D == 32) return wide ? attributes_sm90<32, 2>(out) : attributes_sm90<32, 1>(out);
+    return -1;
 }

@@ -31,11 +31,18 @@ fallback. On a CPU tensor it computes :func:`mha_packed_bias_plain` and
 :func:`mha_packed_bias_bwd_plain`, the same arithmetic in plain PyTorch: fp32
 logits and softmax, probabilities cast to the input type before ``p @ v``,
 fp32 accumulation; in the backward ``ds`` cast to the input type before the
-``dq``/``dk`` products and ``p`` before ``dv``. (The forward kernel
-normalises by the fp32 row sum after the second product rather than before
-the cast, which differs from the plain version only by the rounding of
-``p``.) The forward saves its two inputs for the backward and nothing of
-size S x S.
+``dq``/``dk`` products and ``p`` before ``dv``. The forward saves its two
+inputs for the backward and nothing of size S x S.
+
+The bf16 forward kernel (``wgmma`` products, K and V streamed through a ring
+of shared-memory stages by asynchronous copies) differs from the plain
+version only in where it rounds: it normalises by the fp32 row sum after the
+second product rather than before the cast of ``p``, and it folds the bias
+in algebraically, exact in real arithmetic: ``q + bq`` rounded once as here,
+``bk`` dropped (it adds ``(q + bq) . bk`` to every logit of a row, which the
+softmax cancels), ``bv`` added after the normalisation (each row of ``p``
+sums to 1), where the plain version rounds ``k + bk`` and ``v + bv`` to the
+input type first.
 
 Bound on an H100 in bf16, bytes in both directions: at the ViT-Small
 evaluation shape (B, S, C, H) = (288, 256, 384, 6) the forward must read
@@ -55,10 +62,12 @@ import torch
 _SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _ROW_TILE = 64                # S must be a multiple of this on the card
 _HEAD_DIMS = (32, 64)
+_MAX_BATCH = 65535            # the grid's z extent carries the batch
 # what the C entry points return besides CUDA's own (positive) error codes
 _REFUSALS = {-1: "unsupported head dim",
-             -2: "S too large: one head's rows do not fit in shared memory",
-             -3: "batch too large for the grid (at most 65535)"}
+             -2: "S too large for the backward: one head's rows do not fit in "
+                 "shared memory",
+             -3: f"batch too large for the grid (at most {_MAX_BATCH})"}
 
 
 def _check(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int) -> None:
@@ -116,6 +125,11 @@ def mha_packed_bias_bwd_plain(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, c3)
 
 
+def _check_batch(b: int) -> None:
+    if b > _MAX_BATCH:
+        raise ValueError(f"batch {b} too large for the kernels' grid (at most {_MAX_BATCH})")
+
+
 def _kernel_args(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int):
     """Checks what the kernels do not take; returns the bias as they want it."""
     d = qkv.shape[-1] // 3 // heads
@@ -123,40 +137,67 @@ def _kernel_args(qkv: torch.Tensor, bias: Optional[torch.Tensor], heads: int):
         raise ValueError(f"head dim {d} not supported by the kernel (takes {_HEAD_DIMS})")
     if qkv.shape[1] % _ROW_TILE != 0:
         raise ValueError(f"S = {qkv.shape[1]} must be a multiple of {_ROW_TILE}")
+    _check_batch(qkv.shape[0])
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
     if bias is not None:
-        bias = bias.detach().to(qkv.dtype).contiguous()
+        bias = bias.to(qkv.dtype).contiguous()
     return bias
 
 
+_entries = {}  # (library, entry) -> its ctypes function, argument types set
+
+
+def _entry(library: str, entry: str, pointers: int):
+    fn = _entries.get((library, entry))
+    if fn is None:
+        import ctypes
+
+        from ccd_tpu_torch.ops._build import load_library
+
+        fn = getattr(load_library(library), entry)
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[(library, entry)] = fn
+    return fn
+
+
 def _c_call(entry: str, library: str, tensors, dims, scale: float, device: torch.device,
-            strides=None, what: str = "") -> None:
+            strides=None, what=lambda: "") -> None:
     """Launch C entry point ``entry`` of ``csrc/<library>.cu`` on the current
     stream: the pointers of ``tensors`` ((name, tensor or None) pairs), then
     the host array of ``strides`` (int64 element strides) where given, then
-    ``dims`` (B, S, H, D), is_bf16, scale, stream."""
-    import ctypes
-
-    from ccd_tpu_torch.ops._build import load_library
-
+    ``dims`` (B, S, H, D), is_bf16, scale, stream. ``what()`` describes the
+    call in an error. Kept lean: the host time of a call is paid on every
+    launch and the steps that make them are host-bound."""
+    args, dtype = [], None
     for name, t in tensors:
-        if t is not None and t.data_ptr() % 16 != 0:
+        if t is None:
+            args.append(None)
+            continue
+        ptr = t.data_ptr()
+        if ptr % 16 != 0:
             raise ValueError(f"{name} is not 16-byte aligned")
-    fn = getattr(load_library(library), entry)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * (len(tensors) + (strides is not None)) + \
-            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    dtype = next(t for _, t in tensors if t is not None).dtype
-    extra = [] if strides is None else [(ctypes.c_longlong * len(strides))(*strides)]
-    with torch.cuda.device(device):
-        err = fn(*[t.data_ptr() if t is not None else None for _, t in tensors], *extra,
-                 *dims, int(dtype == torch.bfloat16), float(scale),
-                 torch.cuda.current_stream().cuda_stream)
+        args.append(ptr)
+        dtype = dtype or t.dtype
+    if strides is not None:
+        import ctypes
+        args.append((ctypes.c_longlong * len(strides))(*strides))
+    fn = _entry(library, entry, len(args))
+    index = device.index
+    # the raw handle of the device's current stream (what Triton's launcher
+    # reads): torch.cuda.current_stream() builds a Python object per call
+    args += [*dims, int(dtype == torch.bfloat16), float(scale),
+             torch._C._cuda_getCurrentRawStream(index)]
+    if torch.cuda.current_device() == index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{entry} refused or failed at launch: "
-                           f"{_REFUSALS.get(err, f'CUDA error {err}')} ({what})")
+                           f"{_REFUSALS.get(err, f'CUDA error {err}')} ({what()})")
 
 
 def _call(entry: str, library: str, tensors, qkv: torch.Tensor, scale: float,
@@ -165,7 +206,7 @@ def _call(entry: str, library: str, tensors, qkv: torch.Tensor, scale: float,
     H, D, is_bf16, scale, stream."""
     b, s, c3 = qkv.shape
     _c_call(entry, library, tensors, (b, s, heads, c3 // 3 // heads), scale, qkv.device,
-            what=f"qkv {tuple(qkv.shape)} {qkv.dtype}, heads {heads}")
+            what=lambda: f"qkv {tuple(qkv.shape)} {qkv.dtype}, heads {heads}")
 
 
 def _launch(qkv: torch.Tensor, bias: Optional[torch.Tensor], scale: float,
@@ -216,6 +257,12 @@ def mha_packed_bias_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor], dout: t
 mha_packed_bias_bwd.launches = 0
 
 
+def _needs_graph(*tensors) -> bool:
+    """Whether a call must go through its autograd.Function: only when a
+    gradient is wanted (the Function's host time is paid on every call)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def _forward(qkv: torch.Tensor, bias: Optional[torch.Tensor], scale: float,
              heads: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
@@ -254,7 +301,9 @@ def mha_packed_bias(qkv: torch.Tensor, bias: Optional[torch.Tensor], scale: floa
     ``mha_packed_bias.launches`` counts launches of the forward kernel (and
     nothing else)."""
     _check(qkv, bias, heads)
-    return _PackedAttention.apply(qkv, bias, scale, heads)
+    if _needs_graph(qkv, bias):
+        return _PackedAttention.apply(qkv, bias, scale, heads)
+    return _forward(qkv, bias, scale, heads)
 
 
 mha_packed_bias.launches = 0
@@ -326,31 +375,28 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(_heads_back(g.to(dtype), q.ndim) for g in grads)
 
 
-def _layout(x: torch.Tensor):
-    """(B, H) and the (batch, row, head) element strides of a (BH, S, D) or
-    (B, S, H, D) tensor, for the kernels' strided entries."""
-    if x.ndim == 3:
-        return (x.shape[0], 1), (x.stride(0), x.stride(1), 0)
-    return (x.shape[0], x.shape[2]), (x.stride(0), x.stride(1), x.stride(2))
-
-
 def _strided_args(tensors):
     """Checks what the kernels do not take; returns (B, S, H, D) and the
-    strides of ``tensors`` ((name, tensor) pairs, all of q's shape)."""
+    (batch, row, head) element strides of ``tensors`` ((name, tensor) pairs,
+    all of q's shape): (BH, S, D) is B = BH batches of H = 1 head, and
+    (B, S, H, D) is read with row stride and head offset as they lie."""
     q = tensors[0][1]
     s, d = q.shape[1], q.shape[-1]
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported by the kernel (takes {_HEAD_DIMS})")
     if s % _ROW_TILE != 0:
         raise ValueError(f"S = {s} must be a multiple of {_ROW_TILE}")
+    b, h = q.shape[0], (q.shape[2] if q.ndim == 4 else 1)
+    _check_batch(b)
     per_16_bytes = 16 // q.element_size()
     strides = []
     for name, t in tensors:
-        (b, h), st = _layout(t)
-        if t.stride(-1) != 1 or any(x % per_16_bytes for x in st):
+        st = t.stride()
+        head = st[2] if len(st) == 4 else 0
+        if st[-1] != 1 or st[0] % per_16_bytes or st[1] % per_16_bytes or head % per_16_bytes:
             raise ValueError(f"{name}: D must be contiguous and rows 16 bytes apart, got "
-                             f"strides {tuple(t.stride())}")
-        strides += st
+                             f"strides {st}")
+        strides += (st[0], st[1], head)
     return (b, s, h, d), strides
 
 
@@ -359,11 +405,34 @@ def _launch_flash(q, k, v, scale: float) -> torch.Tensor:
     dims, strides = _strided_args((("q", q), ("k", k), ("v", v), ("out", out)))
     _c_call("flash_attention_forward", "packed_attention",
             (("q", q), ("k", k), ("v", v), ("out", out)), dims, scale, q.device,
-            strides=strides, what=f"q {tuple(q.shape)} {q.dtype}")
+            strides=strides, what=lambda: f"q {tuple(q.shape)} {q.dtype}")
     flash_attention.launches += 1
     if q.ndim == 4:
         mha.launches += 1
     return out
+
+
+def forward_kernel_attributes(head_dim: int, rows: int) -> dict:
+    """Launch resources of the bf16 forward kernel on the current card, for
+    ``head_dim`` (32 or 64) and ``rows``-row tiles (128 where S is a multiple
+    of 128, else 64): registers and local (spill) bytes per thread, shared
+    memory per block, resident blocks per SM (``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads per block."""
+    import ctypes
+
+    from ccd_tpu_torch.ops._build import load_library
+
+    if head_dim not in _HEAD_DIMS or rows not in (64, 128):
+        raise ValueError(f"no forward kernel for head dim {head_dim} and {rows}-row tiles")
+    fn = load_library("packed_attention").attention_forward_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(head_dim, int(rows == 128), out)
+    if err != 0:
+        raise RuntimeError(f"attention_forward_attributes failed: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads"),
+                    out))
 
 
 def _launch_flash_bwd(q, k, v, dout, scale: float):
@@ -380,7 +449,7 @@ def _launch_flash_bwd(q, k, v, dout, scale: float):
     delta = torch.empty_like(lse)
     _c_call("flash_attention_backward", "packed_attention_bwd",
             named + (("lse", lse), ("delta", delta)), dims, scale, q.device,
-            strides=strides, what=f"q {tuple(q.shape)} {q.dtype}")
+            strides=strides, what=lambda: f"q {tuple(q.shape)} {q.dtype}")
     flash_attention_bwd.launches += 1
     return tuple(grads)
 
@@ -431,7 +500,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention.launches`` counts launches of the forward kernel (and
     nothing else), through this function and through :func:`mha`."""
     _check_qkv(q, k, v, (3,))
-    return _FlashAttention.apply(q, k, v, scale)
+    if _needs_graph(q, k, v):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _on_device(flash_attention_plain, _launch_flash, q, k, v, scale)
 
 
 flash_attention.launches = 0
@@ -444,7 +515,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torc
     ``mha.launches`` counts the forward kernel's launches made through this
     function (they are counted in ``flash_attention.launches`` too)."""
     _check_qkv(q, k, v, (4,))
-    return _FlashAttention.apply(q, k, v, scale)
+    if _needs_graph(q, k, v):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _on_device(flash_attention_plain, _launch_flash, q, k, v, scale)
 
 
 mha.launches = 0

@@ -83,8 +83,8 @@ from ccd_tpu_torch.ops.bilateral import bilateral_filter_fused, bilateral_filter
 from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
                                                flash_attention_bwd_plain, flash_attention_plain,
-                                               mha, mha_packed_bias, mha_packed_bias_bwd,
-                                               mha_packed_bias_bwd_plain,
+                                               forward_kernel_attributes, mha, mha_packed_bias,
+                                               mha_packed_bias_bwd, mha_packed_bias_bwd_plain,
                                                mha_packed_bias_plain)
 from ccd_tpu_torch.ops.fused_dino_ce import fused_dino_row_ce, fused_dino_row_ce_plain
 from ccd_tpu_torch.training.finetune_step import (FinetuneState, init_finetune_state,
@@ -121,6 +121,7 @@ FT_PHASES = ("augment", "forward", "tf_loss", "backward", "update")
 # evaluations every 8 iterations over the CLI's 288-word test LMDB
 FT_CLI_WORDS, FT_CLI_ITERS, FT_CLI_RESUMED_ITERS, FT_CLI_EVAL_ITERS = 1152, 16, 32, 8
 CALIBRATE_ITERS = 10                   # calls per calibration row (the CLI's default is 50)
+LONG = 4096                            # a sequence the attention backward refuses
 
 # |kernel - plain| on O(1) outputs. bf16: both round p and the output to bf16
 # (ulp 2^-8 relative, 2^-7 absolute just below 2), at different points of the
@@ -178,20 +179,38 @@ def smi() -> str:
     return out.splitlines()[0]
 
 
+def call_ms(fn) -> float:
+    """One call of ``fn`` between two CUDA events, the card idle before it."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
 def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     """Median of ``reps`` single calls timed with CUDA events, after warm-up."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(call_ms(fn) for _ in range(reps))
+
+
+def time_pair_ms(fn_a, fn_b, reps: int = 30, warmup: int = 3):
+    """Medians of ``reps`` single calls of ``fn_a`` and of ``fn_b`` timed in
+    turns (a b, b a, ...): a call of a few tenths of a millisecond carries the
+    host's time to issue it, which drifts within a run, and in turns both
+    calls see the same drift."""
+    for _ in range(warmup):
+        fn_a()
+        fn_b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(reps):
+        for which in ((0, 1) if i % 2 == 0 else (1, 0)):
+            times[which].append(call_ms((fn_a, fn_b)[which]))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def roofline(nbytes: float, flops: float, dtype, bytes_per_s: float = HBM_BYTES_PER_S):
@@ -231,16 +250,29 @@ def check_attention(shape, dtype, with_bias, gen):
     q, k, v = biased.view(b, s, 3, h, c // h).permute(2, 0, 3, 1, 4)
     heavy = b * s * c > 1 << 24
     bound_ms, bound_by = attention_bound(b, s, c, h, dtype, with_bias)
-    return {
+    kernel = lambda: mha_packed_bias(qkv, bias, scale, h)
+    # one library call on ready-made q, k, v views; used nowhere in the port
+    library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    kernel_ms, library_ms = time_pair_ms(kernel, library)
+    return forward_ratios({
         "shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
-        "max_abs_err": err, "tol": TOL[dtype],
-        "kernel_ms": time_ms(lambda: mha_packed_bias(qkv, bias, scale, h)),
+        "max_abs_err": err, "tol": TOL[dtype], "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: mha_packed_bias_plain(qkv, bias, scale, h),
                             reps=3 if heavy else 10, warmup=1),
-        # one library call on ready-made q, k, v views; used nowhere in the port
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    }, kernel, library)
+
+
+def forward_ratios(entry: dict, kernel, library) -> dict:
+    """A forward case's time against the library call's and the bound
+    (``ms`` as timed: one call between CUDA events, host issue included),
+    and both calls' device time alone."""
+    entry["ms_over_library"] = entry["kernel_ms"] / entry["library_ms"]
+    entry["ms_over_bound"] = entry["kernel_ms"] / entry["bound_ms"]
+    entry["device_ms"] = kernel_device_ms(kernel)
+    entry["library_device_ms"] = kernel_device_ms(library)
+    entry["device_ms_over_library"] = entry["device_ms"] / entry["library_device_ms"]
+    return entry
 
 
 def attention_bwd_bound(b, s, c, h, dtype, with_bias):
@@ -368,13 +400,14 @@ def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_tem
     return fwd, bwd
 
 
-def check_flash(shape, dtype, gen):
+def check_flash(shape, dtype, gen, backward: bool = True):
     """K1b forward and backward against their plain versions on the same
     seeded inputs: folded (BH, S, D) through ``flash_attention``, or
     (B, S, H, D) through ``mha``; the library's attention, forward and
     backward, as a yardstick. Bounds: q, k, v read and o written (forward),
     q, k, v, dO read and dq, dk, dv written (backward), once each; 4 and 10
-    S*S*D flop per head."""
+    S*S*D flop per head. ``backward=False``: the forward alone (a length the
+    backward refuses); returns (forward, None)."""
     q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
     scale = shape[-1] ** -0.5
     bshd = len(shape) == 4
@@ -383,27 +416,28 @@ def check_flash(shape, dtype, gen):
     out = fn(q, k, v, scale)
     torch.cuda.synchronize()
     err = float((out.float() - flash_attention_plain(q, k, v, scale).float()).abs().max())
-    grads = flash_attention_bwd(q, k, v, do, scale)
-    torch.cuda.synchronize()
-    refs = flash_attention_bwd_plain(q, k, v, do, scale)
-    err_bwd = max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, refs))
+    grads, err_bwd = [], 0.0
+    if backward:
+        grads = flash_attention_bwd(q, k, v, do, scale)
+        torch.cuda.synchronize()
+        refs = flash_attention_bwd_plain(q, k, v, do, scale)
+        err_bwd = max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, refs))
     if out.shape != q.shape or out.dtype != dtype or not bool(torch.isfinite(out).all()) \
             or not all(g.shape == q.shape and bool(torch.isfinite(g).all()) for g in grads):
         raise SystemExit(f"{what}: bad output")
     if not err <= TOL[dtype] or not err_bwd <= TOL[dtype]:
         raise SystemExit(f"{what}: max |kernel - plain| = {err} forward, {err_bwd} backward "
                          f"> {TOL[dtype]}")
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    fn(*leaves, scale).backward(do)
-    if not all(bool(torch.equal(x.grad, g)) for x, g in zip(leaves, grads)):
-        raise SystemExit(f"{what}: the autograd function's gradients are not the kernel's")
+    if backward:
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fn(*leaves, scale).backward(do)
+        if not all(bool(torch.equal(x.grad, g)) for x, g in zip(leaves, grads)):
+            raise SystemExit(f"{what}: the autograd function's gradients are not the kernel's")
     # the library's attention on 4-D views of the same tensors (with 3-D ones it
     # takes its unfused fallback): (B, H, S, D) from (B, S, H, D), (1, BH, S, D)
     # from folded
     heads_first = (lambda x: x.transpose(1, 2)) if bshd else (lambda x: x.unsqueeze(0))
-    lq, lk, lv = (heads_first(x).detach().requires_grad_() for x in (q, k, v))
-    lout = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
-    ldo = heads_first(do)
+    fq, fk, fv = (heads_first(x) for x in (q, k, v))
     n, s_len, d = q.numel(), shape[1], shape[-1]
     heads_rows = n // (s_len * d)
     elem = q.element_size()
@@ -413,13 +447,22 @@ def check_flash(shape, dtype, gen):
               "layout": "(B, S, H, D)" if bshd else "(BH, S, D)", "tol": TOL[dtype]}
     fwd_bytes, fwd_flops = 4 * n * elem, 4 * s_len * s_len * d * heads_rows
     bwd_bytes, bwd_flops = 7 * n * elem, 10 * s_len * s_len * d * heads_rows
+    # one library call on the same q, k, v, as the kernel is called (no graph
+    # recorded); used nowhere in the port
+    library = lambda: F.scaled_dot_product_attention(fq, fk, fv, scale=scale)
+    kernel = lambda: fn(q, k, v, scale)
+    kernel_ms, library_ms = time_pair_ms(kernel, library)
     fwd = dict(common, max_abs_err=err, bytes=fwd_bytes, flops=fwd_flops,
-               kernel_ms=time_ms(lambda: fn(q, k, v, scale)),
+               kernel_ms=kernel_ms,
                plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, scale), **slow),
-               # one library call on the same q, k, v; used nowhere in the port
-               library_ms=time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv,
-                                                                          scale=scale)))
+               library_ms=library_ms)
     fwd["bound_ms"], fwd["bound_by"] = roofline(fwd_bytes, fwd_flops, dtype)
+    forward_ratios(fwd, kernel, library)
+    if not backward:
+        return fwd, None
+    lq, lk, lv = (heads_first(x).detach().requires_grad_() for x in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+    ldo = heads_first(do)
     bwd = dict(common, max_abs_err=err_bwd, bytes=bwd_bytes, flops=bwd_flops,
                kernel_ms=time_ms(lambda: flash_attention_bwd(q, k, v, do, scale)),
                plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, do, scale), **slow),
@@ -449,10 +492,10 @@ def bilateral_bound(shape, rad2: torch.Tensor, max_radius: int):
     return (*roofline(nbytes, taps * BILATERAL_OPS_PER_TAP, torch.float32), taps)
 
 
-def kernel_device_ms(fn, name_part: str, reps: int = 20) -> float:
-    """Mean device time of the kernels whose name holds ``name_part`` over
-    ``reps`` calls of ``fn``, from the profiler's device trace (for a
-    kernel whose calls the host cannot issue as fast as the card runs them)."""
+def kernel_device_ms(fn, name_part: str = "", reps: int = 20) -> float:
+    """Mean device time per call of ``fn`` of the kernels whose name holds
+    ``name_part`` (all of them by default), from the profiler's device trace:
+    the kernels' own time, without the host's time to issue the call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -460,13 +503,14 @@ def kernel_device_ms(fn, name_part: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    total = 0.0
     for ev in prof.key_averages():
         if name_part in ev.key:
             us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0.0)
-            return us / ev.count / 1e3
-    raise SystemExit(f"no device time for a kernel named like {name_part!r} in the trace")
+            total += getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+    if not total > 0:
+        raise SystemExit(f"no device time for a kernel named like {name_part!r} in the trace")
+    return total / reps / 1e3
 
 
 def check_bilateral(shape, fixed_radius, gen):
@@ -1241,6 +1285,14 @@ def calibrate_phase(card: str) -> dict:
     return dict(result, launches=launches)
 
 
+def forward_resources() -> list:
+    """Registers and local (spill) bytes per thread, shared memory per block
+    and resident blocks per SM of the bf16 forward kernel, for each head dim
+    and tile height it is built for."""
+    return [dict(head_dim=d, rows=rows, **forward_kernel_attributes(d, rows))
+            for d in (64, 32) for rows in (128, 64)]
+
+
 def kernel_entry(name, source, replaces, launches, head, variants, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches, "max_abs_err": head["max_abs_err"],
@@ -1282,7 +1334,9 @@ def main() -> None:
            check_attention(eval_shape, f32, True, gen),
            check_attention(small, bf16, True, gen),
            check_attention(small, f32, True, gen),
-           check_attention(eval_shape, bf16, False, gen)]
+           check_attention(eval_shape, bf16, False, gen),
+           # K and V stream through shared memory: the forward takes any S
+           check_attention((1, LONG, 64, 1), bf16, True, gen)]
     bwd = [check_attention_bwd(shape, dtype, with_bias, gen)
            for shape in (train_shape, small) for dtype in (bf16, f32)
            for with_bias in (True, False)]
@@ -1292,6 +1346,7 @@ def main() -> None:
              check_flash((8, 64, 32), bf16, gen), check_flash((8, 64, 32), f32, gen),
              check_flash((2 * PRETRAIN_BATCH, 256, 6, 64), bf16, gen)]
     flash_fwd, flash_bwd = [c[0] for c in flash], [c[1] for c in flash]
+    flash_fwd.append(check_flash((1, LONG, 64), bf16, gen, backward=False)[0])
     rows, width = 2 * PRETRAIN_BATCH * 26, 65536
     ce = [check_fused_ce(rows, width, bf16, True, gen),
           check_fused_ce(rows, width, f32, True, gen)]
@@ -1304,20 +1359,24 @@ def main() -> None:
            check_bilateral((3, 17, 45, 3), None, gen)]           # edge tiles in both axes
 
     zeros = lambda *shape, dtype=bf16: torch.zeros(shape, device="cuda", dtype=dtype)
-    bad_attention = [(1, 100, 3 * 64), (1, 64, 3 * 48), (1, 4096, 3 * 64)]  # S, D, shared memory
-    bad_flash = [(1, 100, 64), (1, 64, 48), (1, 4096, 64)]
+    # S, D; the backward also refuses S = LONG (K and V of a head in shared
+    # memory), which the forward now takes (checked above)
+    bad_attention = [(1, 100, 3 * 64), (1, 64, 3 * 48)]
+    bad_attention_bwd = bad_attention + [(1, LONG, 3 * 64)]
+    bad_flash = [(1, 100, 64), (1, 64, 48)]
+    bad_flash_bwd = bad_flash + [(1, LONG, 64)]
     refused = {
         "K1-fwd": count_refusals("packed attention", [
             (lambda sh=sh: mha_packed_bias(zeros(*sh), None, 1.0, 1)) for sh in bad_attention]),
         "K1-bwd": count_refusals("packed attention backward", [
             (lambda sh=sh: mha_packed_bias_bwd(zeros(*sh), None, zeros(sh[0], sh[1], sh[2] // 3),
-                                               1.0, 1)) for sh in bad_attention]),
+                                               1.0, 1)) for sh in bad_attention_bwd]),
         "K1b-fwd": count_refusals("flash attention", [
             (lambda sh=sh: flash_attention(zeros(*sh), zeros(*sh), zeros(*sh), 1.0))
             for sh in bad_flash]),
         "K1b-bwd": count_refusals("flash attention backward", [
             (lambda sh=sh: flash_attention_bwd(zeros(*sh), zeros(*sh), zeros(*sh), zeros(*sh),
-                                               1.0)) for sh in bad_flash]),
+                                               1.0)) for sh in bad_flash_bwd]),
         "K2": count_refusals("fused CE", [
             lambda: fused_dino_row_ce(zeros(4, 64), zeros(4, 64, dtype=f32), zeros(1, 64)),
             lambda: fused_dino_row_ce(zeros(3, 64), zeros(3, 64), zeros(1, 64), swap_halves=True),
@@ -1361,11 +1420,12 @@ def main() -> None:
     k1_fwd = {"evaluation": eval_launches, "pretrain": train_launches["K1-fwd"],
               "finetune": ft_launches["K1-fwd"], "calibrate": calib_launches["K1-fwd"]}
     k1_bwd = {"pretrain": train_launches["K1-bwd"], "finetune": ft_launches["K1-bwd"]}
+    resources = forward_resources()
     emit({"kernels": [
         kernel_entry("K1-fwd packed_attention_forward (mha_packed_bias)",
                      "ccd_tpu_torch/csrc/packed_attention.cu",
                      "ccd_tpu/ops/flash_attention.py:217", sum(k1_fwd.values()), fwd[0], fwd,
-                     launches_by_path=k1_fwd),
+                     launches_by_path=k1_fwd, resources=resources),
         kernel_entry("K1-bwd packed_attention_backward (mha_packed_bias_bwd)",
                      "ccd_tpu_torch/csrc/packed_attention_bwd.cu",
                      "ccd_tpu/ops/flash_attention.py:241", sum(k1_bwd.values()), bwd[0], bwd,
@@ -1376,7 +1436,8 @@ def main() -> None:
                      flash_fwd[0], flash_fwd,
                      launches_by_path={"calibrate": calib_launches["K1b-fwd"]},
                      bound_ms_at_measured_copy_rate=flash_fwd[0]["bound_ms_at_measured_copy_rate"],
-                     measured_copy_gb_per_s=calib["measured_copy_gb_per_s"]),
+                     measured_copy_gb_per_s=calib["measured_copy_gb_per_s"],
+                     resources=resources),
         kernel_entry("K1b-bwd flash_attention_backward (flash_attention_bwd)",
                      "ccd_tpu_torch/csrc/packed_attention_bwd.cu",
                      "ccd_tpu/ops/flash_attention.py:97", calib_launches["K1b-bwd"],

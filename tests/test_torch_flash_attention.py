@@ -288,3 +288,194 @@ def test_k1b_wrappers_raise_on_wrong_input(bad):
         fn = tfa.mha
     with pytest.raises((ValueError, TypeError)):
         fn(q, k, v, 0.125)
+
+
+# ------------------------------------- the bf16 forward kernel's arithmetic, its limits, its build
+
+MICRO = (2, 256, 2, 32)        # vit_micro's attention: embed 64, 2 heads, 8 x 32 patches
+BF16_TOL = 2e-2                # chip_smoke.py's TOL for bf16: O(1) outputs, roundings at other points
+
+
+def _folded_bias_forward(qkv, bias, scale, heads):
+    """What the bf16 forward kernel computes, written out: q + bq rounded once
+    to the input type; bk dropped (it adds (q + bq) . bk to every logit of a
+    row, which the softmax cancels); unnormalised p = exp(logit - max) rounded
+    to the input type before p @ v with fp32 accumulation; divided by the fp32
+    row sum of p after the product; + bv (each row of p sums to 1); one
+    rounding of the output."""
+    b, s, c3 = qkv.shape
+    d = c3 // 3 // heads
+    q, k, v = qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)      # (B, H, S, D)
+    bq, _, bv = bias.view(3, 1, heads, 1, d)
+    logits = (q + bq).float() @ k.float().transpose(-1, -2) * scale
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = (p.to(qkv.dtype).float() @ v.float()) / p.sum(-1, keepdim=True) + bv.float()
+    return out.to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, s, c3 // 3)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5), ("bfloat16", BF16_TOL)])
+def test_folded_bias_algebra_matches_pallas(interpret_mode, dtype, atol):
+    """Folding bk away and bv in after the normalisation is exact in real
+    arithmetic: in fp32 it agrees with the Pallas kernel (which adds all three
+    biases first) to float rounding; in bf16 within the kernel's tolerance,
+    against the Pallas kernel and the port's plain version alike."""
+    b, s, h, d = MICRO
+    qkv, bias, scale = _inputs(b, s, h, d, 14)
+    if dtype == "bfloat16":
+        jq, jb = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(bias, jnp.bfloat16)
+        tq, tb = (torch.from_numpy(a).bfloat16() for a in (qkv, bias))
+    else:
+        jq, jb = jnp.asarray(qkv), jnp.asarray(bias)
+        tq, tb = torch.from_numpy(qkv), torch.from_numpy(bias)
+    ref = np.asarray(fa.mha_packed_bias(jq, jb, scale, h).astype(jnp.float32))
+    folded = _folded_bias_forward(tq, tb, scale, h)
+    assert folded.dtype == tq.dtype
+    np.testing.assert_allclose(folded.float().numpy(), ref, atol=atol)
+    plain = tfa.mha_packed_bias_plain(tq, tb, scale, h)
+    np.testing.assert_allclose(folded.float().numpy(), plain.float().numpy(), atol=atol)
+
+
+def test_bk_drops_out_of_the_softmax():
+    """The folded algebra's premise: a key bias shifts each row's logits by a
+    constant, so the output does not depend on it (fp32: up to the rounding
+    of the shifted logits)."""
+    b, s, h, d = MICRO
+    qkv, bias, scale = _inputs(b, s, h, d, 15)
+    tq, tb = torch.from_numpy(qkv), torch.from_numpy(bias)
+    other = tb.clone()
+    other[h * d:2 * h * d] = torch.from_numpy(np.random.default_rng(16).normal(
+        size=h * d).astype(np.float32))
+    np.testing.assert_allclose(tfa.mha_packed_bias_plain(tq, tb, scale, h).numpy(),
+                               tfa.mha_packed_bias_plain(tq, other, scale, h).numpy(),
+                               atol=1e-5)
+
+
+def _packed(b, s, c3, dtype=torch.bfloat16):
+    return torch.zeros(b, s, c3, dtype=dtype)
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("d64", True), ("d32", True), ("long_s", True), ("d48", False), ("d128", False),
+    ("s_not_64", False), ("not_contiguous", False), ("batch_65536", False), ("batch_65535", True)])
+def test_packed_kernel_argument_limits(case, ok):
+    """What the packed entry takes, checked before anything is built: D 32 or
+    64, S a multiple of 64 and of any length (K and V stream through shared
+    memory), a contiguous qkv, and at most 65535 batch rows (the grid's z)."""
+    heads = 2
+    qkv = {"d64": _packed(2, 64, 3 * 128), "d32": _packed(2, 64, 3 * 64),
+           "long_s": _packed(1, 4096, 3 * 128), "d48": _packed(2, 64, 3 * 96),
+           "d128": _packed(2, 64, 3 * 256), "s_not_64": _packed(2, 100, 3 * 128),
+           "not_contiguous": _packed(2, 64, 3 * 256)[..., :3 * 128],
+           "batch_65536": _packed(1, 64, 3 * 128).expand(65536, 64, 3 * 128),
+           "batch_65535": None}[case]
+    if case == "batch_65535":  # the largest batch the grid takes
+        tfa._check_batch(65535)
+        return
+    bias = torch.zeros(qkv.shape[-1], dtype=torch.float32)
+    if ok:
+        out = tfa._kernel_args(qkv, bias, heads)
+        assert out.dtype == qkv.dtype and out.is_contiguous()
+    else:
+        with pytest.raises(ValueError):
+            tfa._kernel_args(qkv, bias, heads)
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("folded_d64", True), ("folded_d32", True), ("bshd", True), ("long_s", True),
+    ("d48", False), ("s_not_64", False), ("rows_not_16_bytes", False),
+    ("d_not_contiguous", False), ("batch_65536", False)])
+def test_strided_kernel_argument_limits(case, ok):
+    """What the strided entry takes: D 32 or 64 and contiguous, S a multiple
+    of 64, every batch, row and head stride a multiple of 16 bytes, at most
+    65535 batch rows. (B, S, H, D) is read with its row stride and head
+    offset as it lies."""
+    z = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16)
+    q = {"folded_d64": z(4, 64, 64), "folded_d32": z(4, 128, 32), "bshd": z(2, 64, 3, 64),
+         "long_s": z(1, 4096, 64), "d48": z(4, 64, 48), "s_not_64": z(4, 96, 64),
+         "rows_not_16_bytes": z(4, 64, 36)[..., :32],
+         "d_not_contiguous": z(4, 64, 64).transpose(1, 2),
+         "batch_65536": z(1, 64, 64).expand(65536, 64, 64)}[case]
+    named = (("q", q), ("k", q), ("v", q), ("out", q))
+    if ok:
+        (b, s, h, d), strides = tfa._strided_args(named)
+        assert (b, s, d) == (q.shape[0], q.shape[1], q.shape[-1])
+        assert h == (q.shape[2] if q.ndim == 4 else 1)
+        want = (q.stride(0), q.stride(1), q.stride(2) if q.ndim == 4 else 0)
+        assert strides == list(want) * 4
+    else:
+        with pytest.raises(ValueError):
+            tfa._strided_args(named)
+
+
+def test_misaligned_base_is_refused_before_anything_is_built():
+    """A base pointer off the 16-byte grid is refused by the launch helper
+    itself, before it looks for the library."""
+    qkv = torch.zeros(2 * 64 * 3 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 64, 3 * 64)
+    out = torch.zeros(2, 64, 64, dtype=torch.bfloat16)
+    assert qkv.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._c_call("packed_attention_forward", "no_such_library",
+                    (("qkv", qkv), ("bias", None), ("out", out)), (2, 64, 1, 64), 0.125,
+                    torch.device("cuda", 0))
+    with pytest.raises(ValueError):
+        tfa.forward_kernel_attributes(48, 128)
+
+
+def test_forward_refusal_texts():
+    """The forward no longer refuses a long S; the backward does, and says so."""
+    assert "backward" in tfa._REFUSALS[-2]
+    assert "65535" in tfa._REFUSALS[-3]
+
+
+def test_no_graph_without_a_gradient():
+    """Without a gradient to take (inputs that do not require one, or under
+    no_grad) the wrappers skip their autograd.Function and return the same
+    values; with one they record it."""
+    qkv, bias, scale = _inputs(1, 64, 2, 32, 17)
+    tq, tb = torch.from_numpy(qkv), torch.from_numpy(bias)
+    out = tfa.mha_packed_bias(tq, tb, scale, 2)
+    assert out.grad_fn is None
+    np.testing.assert_array_equal(out.numpy(),
+                                  tfa.mha_packed_bias_plain(tq, tb, scale, 2).numpy())
+    leaf = tq.clone().requires_grad_()
+    assert tfa.mha_packed_bias(leaf, tb, scale, 2).grad_fn is not None
+    with torch.no_grad():
+        assert tfa.mha_packed_bias(leaf, tb, scale, 2).grad_fn is None
+    q = torch.randn(2, 64, 32)
+    assert tfa.flash_attention(q, q, q, 0.2).grad_fn is None
+    assert tfa.flash_attention(q.requires_grad_(), q, q, 0.2).grad_fn is not None
+
+
+def test_build_hashes_every_header_and_needs_no_include_flags(tmp_path, monkeypatch):
+    """A library's name carries the hash of its source and of every shared
+    header in csrc/, the new forward's attention_sm90.cuh included, so a change
+    to a header rebuilds; every quoted include of a source is such a header,
+    and no source includes a header outside the CUDA toolkit (the flags name
+    no include directory)."""
+    import os
+    import re
+    import shutil
+
+    from ccd_tpu_torch.ops import _build
+
+    sources = sorted(os.listdir(_build.CSRC_DIR))
+    assert "attention_sm90.cuh" in sources
+    for name in sources:
+        text = open(os.path.join(_build.CSRC_DIR, name)).read()
+        for inc in re.findall(r'#include "([^"]+)"', text):
+            assert inc.endswith(".cuh") and inc in sources, (name, inc)
+        for inc in re.findall(r"#include <([^>]+)>", text):
+            assert not inc.startswith(("cute/", "cutlass/")), (name, inc)
+    assert not any(f.startswith("-I") for f in _build.NVCC_FLAGS)
+    assert '#include "attention_sm90.cuh"' in open(
+        os.path.join(_build.CSRC_DIR, "packed_attention.cu")).read()
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, copy)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(copy))
+    src, before = _build._paths("packed_attention")
+    assert src == str(copy / "packed_attention.cu")
+    with open(copy / "attention_sm90.cuh", "a") as f:
+        f.write("\n// changed\n")
+    _, after = _build._paths("packed_attention")
+    assert after != before and os.path.dirname(after) == _build.BUILD_DIR
