@@ -121,7 +121,8 @@ def _train(config, args, device) -> dict:
     seed = int(config.seed or 0)
     student, teacher = build_pretrain_models(
         config, device=device, generator=torch.Generator().manual_seed(seed))
-    state = init_pretrain_state(student, teacher, seed=seed)
+    state = init_pretrain_state(student, teacher, seed=seed,
+                                optimizer=str(config.optimizer or "adamw"))
 
     global_batch = batch_size
     total_iters = max(int(config.training_epochs) * config.iter_num, 1)

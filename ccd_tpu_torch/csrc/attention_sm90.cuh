@@ -1,17 +1,19 @@
-// Hopper (sm_90a) pieces of the attention forward: 16-byte asynchronous
+// Hopper (sm_90a) pieces of the attention kernels: 16-byte asynchronous
 // copies into swizzled shared memory (`cp.async.cg`), the shared-memory
-// matrix descriptors of `wgmma`, and `wgmma.mma_async` with A in registers.
+// matrix descriptors of `wgmma`, and `wgmma.mma_async` with A in registers
+// or in shared memory.
 //
 // Tile layout. A tile is R rows x D bf16 (D = 32 or 64) stored with a row
 // stride of 2D bytes under the swizzle of the same width: the 16-byte chunk
 // index of a byte offset is XORed with bits 7.. of the offset
 // (SWIZZLE_128B for D = 64: chunk ^= row % 8; SWIZZLE_64B for D = 32:
 // chunk ^= (row / 2) % 4). Tiles start 1024 bytes apart from a 1024-aligned
-// base, so the pattern is the hardware's. One layout serves both products:
-//   * K tile, B of S = Q K^T: K-major (D contiguous); a 16-deep step of D
-//     advances the descriptor's start by 32 bytes;
-//   * V tile, B of O = P V: MN-major (D contiguous, keys the depth), read
-//     with the transpose bit; a 16-key step advances it by 16 rows.
+// base, so the pattern is the hardware's. One layout serves every product:
+//   * K-major (D contiguous, D the depth), e.g. K as B of S = Q K^T, or Q
+//     as A from shared memory: a 16-deep step of D advances the
+//     descriptor's start by 32 bytes;
+//   * MN-major (D contiguous, rows the depth), e.g. V as B of O = P V, read
+//     with the transpose bit: a 16-row step advances it by 16 rows.
 // In both, the 8-row groups lie 8 * 2D bytes apart (the descriptor's stride
 // byte offset); the leading byte offset is unused (one swizzle atom wide).
 #pragma once
@@ -39,6 +41,28 @@ __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
 template <int D>
 __device__ __forceinline__ uint32_t swizzled_pair(int row, int col) {
     return swizzled<D>(row, col >> 3) + (col & 7) * 2;
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// the sum over the four threads of a quad (one fragment row)
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// (x + bias) for a pair of bf16: fp32 add, rounded once
+__device__ __forceinline__ uint32_t add_pair(uint32_t x, const __nv_bfloat16* bias) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias);
+    const __nv_bfloat162 r = __floats2bfloat162_rn(__low2float(v) + __low2float(b),
+                                                   __high2float(v) + __high2float(b));
+    return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
@@ -176,6 +200,34 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
           "n"(TRANS_B));
+}
+
+// D(64 x 64, fp32) (+)= A(64 x 16, bf16, shared memory at `adesc`, K-major)
+// * B(16 x 64, bf16, shared memory at `bdesc`; TRANS_B = 1: MN-major). The
+// same register layout of D as above.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t adesc, uint64_t bdesc,
+                                         int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(adesc), "l"(bdesc), "r"(scale_d), "n"(TRANS_B));
 }
 
 // The product with N = 64 or 32 columns (the accumulator's size picks it).

@@ -57,13 +57,17 @@
 //     normalisation, since each row of P sums to 1. Only rounding points move
 //     (the plain version rounds k + bk and v + bv to bf16 first);
 //   * the output tile goes through this warp's rows of the Q tile in shared
-//     memory and out in 16-byte rows.
+//     memory and out in 16-byte rows;
+//   * when a gradient is wanted, each row's base-2 log-sum-exp m + log2(l)
+//     goes to a (B, H, S) fp32 array (attention_common.cuh states its
+//     units), which the backward reads instead of recomputing the softmax.
 // K and V rows of a head are read once per 128-row tile; the tiles of one
 // head are neighbours in the grid, so the repeats are served by the L2 cache.
 //
 // fp32 kernel: scalar FMA, one query row per thread, K/V streamed through
-// shared memory in 32-key chunks, biases added as they are loaded. Exact fp32
-// arithmetic (no TF32).
+// shared memory in 32-key chunks, bq and bv added as they are loaded and bk
+// dropped, as in the bf16 kernel, so both save the same log-sum-exp. Exact
+// fp32 arithmetic (no TF32).
 //
 // Plain C interface, loaded with ctypes; see ccd_tpu_torch/ops/flash_attention.py.
 
@@ -74,27 +78,12 @@ namespace {
 
 constexpr int KEYS = 64;    // keys per chunk, the online softmax's step
 constexpr int STAGES = 3;   // K/V chunks in shared memory: one read, two landing
-constexpr int MAX_DEVICES = 64;
 
 // Dynamic shared memory of the bf16 kernel: 1024-byte alignment slack, the
 // Q tiles of WGS warpgroups (later the output), and STAGES x (K, V) chunks.
 template <int D, int WGS>
 constexpr size_t fwd_smem_bytes() {
     return 1024 + (size_t)(WGS + 2 * STAGES) * KEYS * 2 * D;
-}
-
-// 2^x on the special-function unit; results below 2^-126 flush to 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// (x + bias) for a pair of bf16: fp32 add, rounded once
-__device__ __forceinline__ uint32_t add_pair(uint32_t x, const bf16* bias) {
-    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias);
-    return pack_bf16(__low2float(v) + __low2float(b), __high2float(v) + __high2float(b));
 }
 
 // grid (S / (64 * WGS), H, B), block 128 * WGS threads, dynamic shared memory
@@ -254,6 +243,11 @@ attention_fwd_sm90(const FwdArgs<bf16> a, int S, float scale_log2e) {
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    if (a.lse != nullptr && t == 0) {  // m and the scores are in units of x_ij already
+        float* lse = a.lse + ((size_t)b * gridDim.y + h) * S + (size_t)tile * ROWS + r0;
+        lse[0] = m0 + log2f(l0);
+        lse[8] = m1 + log2f(l1);
+    }
 
     // O / l + bv in bf16 over this warp's own 16 rows of the Q tile (only it
     // read them, into registers), then out 16 bytes a thread
@@ -295,7 +289,6 @@ attention_fwd_f32(const FwdArgs<float> a, int S, float scale) {
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int row = tile * F32_ROWS + threadIdx.x;
     const float* bq = head_bias(a.bq, h, D);
-    const float* bk = head_bias(a.bk, h, D);
     const float* bv = head_bias(a.bv, h, D);
 
     float q[D], o[D];
@@ -318,12 +311,10 @@ attention_fwd_f32(const FwdArgs<float> a, int S, float scale) {
         __syncthreads();  // the previous chunk is no longer read
         for (int i = threadIdx.x; i < F32_KEYS * (D / 4); i += F32_ROWS) {
             const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-            float4 kv = __ldg(reinterpret_cast<const float4*>(a.k.at(b, h, k0 + r) + c));
+            const float4 kv = __ldg(reinterpret_cast<const float4*>(a.k.at(b, h, k0 + r) + c));
             float4 vv = __ldg(reinterpret_cast<const float4*>(a.v.at(b, h, k0 + r) + c));
-            if (bk != nullptr) {
-                float4 kb = __ldg(reinterpret_cast<const float4*>(bk + c));
-                float4 vb = __ldg(reinterpret_cast<const float4*>(bv + c));
-                kv.x += kb.x; kv.y += kb.y; kv.z += kb.z; kv.w += kb.w;
+            if (bv != nullptr) {
+                const float4 vb = __ldg(reinterpret_cast<const float4*>(bv + c));
                 vv.x += vb.x; vv.y += vb.y; vv.z += vb.z; vv.w += vb.w;
             }
             *reinterpret_cast<float4*>(&Ks[r][c]) = kv;
@@ -357,6 +348,7 @@ attention_fwd_f32(const FwdArgs<float> a, int S, float scale) {
         }
     }
     const float inv = 1.f / l;
+    if (a.lse != nullptr) a.lse[((size_t)b * gridDim.y + h) * S + row] = (m + logf(l)) * LOG2E;
     float* op = a.o.at(b, h, row);
 #pragma unroll
     for (int d = 0; d < D; d += 4) {
@@ -394,7 +386,7 @@ int launch_sm90(const FwdArgs<bf16>& a, int B, int S, int H, float scale,
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(S / (64 * WGS), H, B);
     attention_fwd_sm90<D, WGS><<<grid, 128 * WGS, fwd_smem_bytes<D, WGS>(), stream>>>(
-        a, S, scale * 1.4426950408889634f);
+        a, S, scale * LOG2E);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,26 +430,26 @@ int launch(const FwdArgs<T>& a, int B, int S, int H, int D, float scale, cudaStr
 }
 
 template <typename T>
-int packed_forward(const void* qkv, const void* bias, void* out, int B, int S, int H, int D,
-                   float scale, cudaStream_t st) {
+int packed_forward(const void* qkv, const void* bias, void* out, float* lse, int B, int S,
+                   int H, int D, float scale, cudaStream_t st) {
     const long long C = (long long)H * D;
     const T* x = static_cast<const T*>(qkv);
     const T* bb = static_cast<const T*>(bias);
     const long long in[3] = {S * 3 * C, 3 * C, D}, o[3] = {S * C, C, D};
     FwdArgs<T> a{operand(x, in), operand(x + C, in), operand(x + 2 * C, in),
                  bb, bb ? bb + C : nullptr, bb ? bb + 2 * C : nullptr,
-                 operand(static_cast<T*>(out), o)};
+                 operand(static_cast<T*>(out), o), lse};
     return launch(a, B, S, H, D, scale, st);
 }
 
 template <typename T>
-int strided_forward(const void* q, const void* k, const void* v, void* out,
+int strided_forward(const void* q, const void* k, const void* v, void* out, float* lse,
                     const long long* strides, int B, int S, int H, int D, float scale,
                     cudaStream_t st) {
     FwdArgs<T> a{operand(static_cast<const T*>(q), strides),
                  operand(static_cast<const T*>(k), strides + 3),
                  operand(static_cast<const T*>(v), strides + 6), nullptr, nullptr, nullptr,
-                 operand(static_cast<T*>(out), strides + 9)};
+                 operand(static_cast<T*>(out), strides + 9), lse};
     return launch(a, B, S, H, D, scale, st);
 }
 
@@ -468,15 +460,18 @@ int strided_forward(const void* q, const void* k, const void* v, void* out,
 // when B exceeds the grid. Tensors are of one type: is_bf16 = 1 for
 // bfloat16, 0 for float32. D is 32 or 64 and S a multiple of 64 (any size:
 // K and V stream through shared memory); the caller checks both, and the
-// alignment.
+// alignment. `lse` is a (B, H, S) fp32 array for each row's base-2
+// log-sum-exp (attention_common.cuh), written when a gradient is wanted, or
+// null: nothing is written.
 
 // K1-fwd. qkv (B, S, 3*H*D) and out (B, S, H*D) contiguous, bias (3*H*D,) or null.
 extern "C" int packed_attention_forward(const void* qkv, const void* bias, void* out,
-                                        int B, int S, int H, int D, int is_bf16,
+                                        void* lse, int B, int S, int H, int D, int is_bf16,
                                         float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? packed_forward<bf16>(qkv, bias, out, B, S, H, D, scale, st)
-                   : packed_forward<float>(qkv, bias, out, B, S, H, D, scale, st);
+    float* l = static_cast<float*>(lse);
+    return is_bf16 ? packed_forward<bf16>(qkv, bias, out, l, B, S, H, D, scale, st)
+                   : packed_forward<float>(qkv, bias, out, l, B, S, H, D, scale, st);
 }
 
 // K1b-fwd. q, k, v and out are (B, H, S, D) operands given by their base
@@ -484,11 +479,12 @@ extern "C" int packed_attention_forward(const void* qkv, const void* bias, void*
 // k, v and out in turn; D is contiguous. Folded (B*H, S, D) tensors are
 // H = 1; (B, S, H, D) tensors are read and written in place.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* out,
-                                       const long long* strides, int B, int S, int H, int D,
-                                       int is_bf16, float scale, void* stream) {
+                                       void* lse, const long long* strides, int B, int S,
+                                       int H, int D, int is_bf16, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? strided_forward<bf16>(q, k, v, out, strides, B, S, H, D, scale, st)
-                   : strided_forward<float>(q, k, v, out, strides, B, S, H, D, scale, st);
+    float* l = static_cast<float*>(lse);
+    return is_bf16 ? strided_forward<bf16>(q, k, v, out, l, strides, B, S, H, D, scale, st)
+                   : strided_forward<float>(q, k, v, out, l, strides, B, S, H, D, scale, st);
 }
 
 // Launch resources of the bf16 kernel for head dim D (32 or 64) with 128-row

@@ -56,12 +56,22 @@ class PretrainState:
 
 
 def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
-                        seed: int = 0) -> PretrainState:
+                        seed: int = 0, optimizer: str = "adamw") -> PretrainState:
     """Build the initial state around two built models: the teacher starts as
     a copy of the student's backbone+head (train.py:109-110), the optimizer
-    moments (AdamW, the shipped configs' optimizer) and the center at zero.
-    The drop-path generator and the augmentation generator live on the
-    models' device and start from ``seed`` and ``seed + 1``."""
+    moments and the center at zero. The drop-path generator and the
+    augmentation generator live on the models' device and start from
+    ``seed`` and ``seed + 1``.
+
+    ``optimizer`` is the configuration's name (``config.optimizer``; empty
+    means AdamW, as train.py defaults it). Only AdamW, the shipped configs'
+    optimizer, is ported: any other name (the JAX package's ``sgd`` and
+    ``lars`` among them) raises ``NotImplementedError`` rather than training
+    with AdamW instead."""
+    if (optimizer or "adamw") != "adamw":
+        raise NotImplementedError(
+            f"optimizer {optimizer!r} is not ported: the port trains with AdamW only "
+            f"(sgd and lars are ROADMAP queue 1 (5))")
     teacher.backbone.load_state_dict(student.backbone.state_dict())
     teacher.head.load_state_dict(student.head.state_dict())
     student.train()

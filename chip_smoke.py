@@ -65,6 +65,7 @@ import ccd_tpu_torch
 import ccd_tpu_torch.data.aug_ops as aug_ops_mod
 import ccd_tpu_torch.losses.losses as losses_mod
 import ccd_tpu_torch.models.vit as vit_mod
+import ccd_tpu_torch.ops.flash_attention as flash_attention_mod
 import ccd_tpu_torch.training.finetune_step as finetune_step_mod
 import ccd_tpu_torch.training.pretrain_step as pretrain_step_mod
 from ccd_tpu_torch.builders import build_pretrain_models, build_recognizer
@@ -81,11 +82,12 @@ from ccd_tpu_torch.losses import teacher_temp_schedule
 from ccd_tpu_torch.ops import _build
 from ccd_tpu_torch.ops.bilateral import bilateral_filter_fused, bilateral_filter_plain
 from ccd_tpu_torch.ops.cc_label import label_clusters
-from ccd_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
-                                               flash_attention_bwd_plain, flash_attention_plain,
+from ccd_tpu_torch.ops.flash_attention import (backward_kernel_attributes, flash_attention,
+                                               flash_attention_bwd, flash_attention_bwd_plain,
+                                               flash_attention_fwd, flash_attention_plain,
                                                forward_kernel_attributes, mha, mha_packed_bias,
                                                mha_packed_bias_bwd, mha_packed_bias_bwd_plain,
-                                               mha_packed_bias_plain)
+                                               mha_packed_bias_fwd, mha_packed_bias_plain)
 from ccd_tpu_torch.ops.fused_dino_ce import fused_dino_row_ce, fused_dino_row_ce_plain
 from ccd_tpu_torch.training.finetune_step import (FinetuneState, init_finetune_state,
                                                   make_fused_finetune_step)
@@ -121,7 +123,7 @@ FT_PHASES = ("augment", "forward", "tf_loss", "backward", "update")
 # evaluations every 8 iterations over the CLI's 288-word test LMDB
 FT_CLI_WORDS, FT_CLI_ITERS, FT_CLI_RESUMED_ITERS, FT_CLI_EVAL_ITERS = 1152, 16, 32, 8
 CALIBRATE_ITERS = 10                   # calls per calibration row (the CLI's default is 50)
-LONG = 4096                            # a sequence the attention backward refuses
+LONG = 4096                            # a long sequence: K/V (or Q/dO) stream through shared memory
 
 # |kernel - plain| on O(1) outputs. bf16: both round p and the output to bf16
 # (ulp 2^-8 relative, 2^-7 absolute just below 2), at different points of the
@@ -129,7 +131,14 @@ LONG = 4096                            # a sequence the attention backward refus
 # The backward's outputs are O(1) to O(4) and rounded once more (dS, P) than the
 # forward's, at the same places in kernel and plain version: the same limits.
 # K1b (folded and (B, S, H, D) operands) runs the same device code: the same limits.
+# The backward reads the forward's saved output and log-sum-exp, the plain
+# version the same tensors; the kernels' exponential is ex2.approx (2 ulp),
+# far inside these limits.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The forward's saved log-sum-exp (base 2, O(8) at S = 256) against the
+# plain version's: the same fp32 logits summed in another order, through
+# ex2.approx in the bf16 kernel; a few fp32 ulps of an O(10) value.
+TOL_LSE = 1e-3
 # dbias sums dqkv over B*S rows; kernel and plain dqkv differ by roundings of
 # either sign, so the sums are compared relative to the largest entry.
 TOL_DBIAS_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
@@ -254,7 +263,7 @@ def check_attention(shape, dtype, with_bias, gen):
     # one library call on ready-made q, k, v views; used nowhere in the port
     library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
     kernel_ms, library_ms = time_pair_ms(kernel, library)
-    return forward_ratios({
+    return time_ratios({
         "shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
         "max_abs_err": err, "tol": TOL[dtype], "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: mha_packed_bias_plain(qkv, bias, scale, h),
@@ -263,10 +272,10 @@ def check_attention(shape, dtype, with_bias, gen):
     }, kernel, library)
 
 
-def forward_ratios(entry: dict, kernel, library) -> dict:
-    """A forward case's time against the library call's and the bound
-    (``ms`` as timed: one call between CUDA events, host issue included),
-    and both calls' device time alone."""
+def time_ratios(entry: dict, kernel, library) -> dict:
+    """A case's time against the library call's and the bound (``ms`` as
+    timed: one call between CUDA events, host issue included), and both
+    calls' device time alone."""
     entry["ms_over_library"] = entry["kernel_ms"] / entry["library_ms"]
     entry["ms_over_bound"] = entry["kernel_ms"] / entry["bound_ms"]
     entry["device_ms"] = kernel_device_ms(kernel)
@@ -283,23 +292,40 @@ def attention_bwd_bound(b, s, c, h, dtype, with_bias):
     return roofline(nbytes, 10 * s * s * (c // h) * h * b, dtype)
 
 
+def check_saved_lse(lse, ref_lse, what):
+    """The forward's saved log-sum-exp against the plain version's."""
+    err = float((lse - ref_lse).abs().max())
+    if lse.dtype != torch.float32 or lse.shape != ref_lse.shape or not err <= TOL_LSE:
+        raise SystemExit(f"{what}: saved lse {tuple(lse.shape)} {lse.dtype} off by {err} "
+                         f"> {TOL_LSE}")
+    return err
+
+
 def check_attention_bwd(shape, dtype, with_bias, gen):
     """Backward kernel against its plain version (dqkv, and dbias through the
-    autograd function), and the library's attention backward as a yardstick."""
+    autograd function), both given the forward kernel's saved output and
+    log-sum-exp, as autograd passes them; two calls bitwise equal; the
+    library's attention backward as a yardstick, timed in turns."""
     b, s, c, h = shape
     qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dtype)
     bias = (0.5 * torch.randn(3 * c, device="cuda", generator=gen)).to(dtype) if with_bias else None
     dout = torch.randn(b, s, c, device="cuda", generator=gen).to(dtype)
     scale = (c // h) ** -0.5
-    dqkv = mha_packed_bias_bwd(qkv, bias, dout, scale, h)
-    torch.cuda.synchronize()
-    ref = mha_packed_bias_bwd_plain(qkv, bias, dout, scale, h)
-    err = float((dqkv.float() - ref.float()).abs().max())
     what = f"packed attention backward {shape} {dtype} bias={with_bias}"
+    out, lse = mha_packed_bias_fwd(qkv, bias, scale, h)
+    lse_err = check_saved_lse(lse, mha_packed_bias_plain(qkv, bias, scale, h, return_lse=True)[1],
+                              what)
+    dqkv = mha_packed_bias_bwd(qkv, bias, dout, scale, h, out=out, lse=lse)
+    again = mha_packed_bias_bwd(qkv, bias, dout, scale, h, out=out, lse=lse)
+    torch.cuda.synchronize()
+    ref = mha_packed_bias_bwd_plain(qkv, bias, dout, scale, h, out=out, lse=lse)
+    err = float((dqkv.float() - ref.float()).abs().max())
     if dqkv.shape != qkv.shape or dqkv.dtype != dtype or not bool(torch.isfinite(dqkv).all()):
         raise SystemExit(f"{what}: bad output")
     if not err <= TOL[dtype]:
         raise SystemExit(f"{what}: max |kernel - plain| = {err} > {TOL[dtype]}")
+    if not bool(torch.equal(dqkv, again)):
+        raise SystemExit(f"{what}: two calls on the same inputs differ")
     dbias_rel = None
     if with_bias:
         q, bb = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
@@ -318,19 +344,64 @@ def check_attention_bwd(shape, dtype, with_bias, gen):
     ldo = dout.view(b, s, h, c // h).permute(0, 2, 1, 3)
     heavy = b * s * c > 1 << 24
     bound_ms, bound_by = attention_bwd_bound(b, s, c, h, dtype, with_bias)
-    return {
+    kernel = lambda: mha_packed_bias_bwd(qkv, bias, dout, scale, h, out=out, lse=lse)
+    # the library's backward alone, on a graph built once over ready-made
+    # q, k, v; used nowhere in the port
+    library = lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True)
+    kernel_ms, library_ms = time_pair_ms(kernel, library)
+    return time_ratios({
         "shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
         "max_abs_err": err, "tol": TOL[dtype], "dbias_rel_err": dbias_rel,
-        "tol_dbias_rel": TOL_DBIAS_REL[dtype],
-        "kernel_ms": time_ms(lambda: mha_packed_bias_bwd(qkv, bias, dout, scale, h)),
-        "plain_ms": time_ms(lambda: mha_packed_bias_bwd_plain(qkv, bias, dout, scale, h),
+        "tol_dbias_rel": TOL_DBIAS_REL[dtype], "lse_max_abs_err": lse_err, "tol_lse": TOL_LSE,
+        "bitwise_reproducible": True, "kernel_ms": kernel_ms,
+        "plain_ms": time_ms(lambda: mha_packed_bias_bwd_plain(qkv, bias, dout, scale, h, out=out,
+                                                              lse=lse),
                             reps=3 if heavy else 10, warmup=1),
-        # the library's backward alone, on a graph built once over ready-made
-        # q, k, v; used nowhere in the port
-        "library_ms": time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
-                                                          retain_graph=True)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    }, kernel, library)
+
+
+def launched_tensors(fn) -> list:
+    """(entry, names of the non-null tensors) of each C entry that one call
+    of ``fn`` launches: the wrapper's arguments as the kernel gets them."""
+    seen, real = [], flash_attention_mod._c_call
+
+    def spy(entry, library, tensors, *args, **kwargs):
+        seen.append((entry, [name for name, t in tensors if t is not None]))
+        return real(entry, library, tensors, *args, **kwargs)
+
+    flash_attention_mod._c_call = spy
+    try:
+        fn()
+    finally:
+        flash_attention_mod._c_call = real
+    return seen
+
+
+def forward_lse_check(shape, gen) -> dict:
+    """The eval-shape forward without a gradient hands the kernel no lse
+    array (so none is written) and the one that autograd runs does; the
+    device time of both, and the plain forward's agreement with the saved
+    lse."""
+    b, s, c, h = shape
+    qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).bfloat16()
+    bias = (0.5 * torch.randn(3 * c, device="cuda", generator=gen)).bfloat16()
+    scale = (c // h) ** -0.5
+    with torch.no_grad():
+        plain_call = launched_tensors(lambda: mha_packed_bias(qkv, bias, scale, h))
+    leaf = qkv.clone().requires_grad_()
+    graph_call = launched_tensors(lambda: mha_packed_bias(leaf, bias, scale, h))
+    want = [("packed_attention_forward", ["qkv", "bias", "out"])]
+    if plain_call != want or graph_call != [("packed_attention_forward",
+                                             ["qkv", "bias", "out", "lse"])]:
+        raise SystemExit(f"forward lse: without a gradient the kernel got {plain_call}, with "
+                         f"one {graph_call}")
+    with torch.no_grad():
+        no_lse_ms = kernel_device_ms(lambda: mha_packed_bias(qkv, bias, scale, h))
+    return {"shape": list(shape), "dtype": "bfloat16", "no_grad_launch": plain_call,
+            "grad_launch": graph_call, "device_ms_without_lse": no_lse_ms,
+            "device_ms_with_lse": kernel_device_ms(lambda: mha_packed_bias_fwd(qkv, bias, scale,
+                                                                              h))}
 
 
 def fused_ce_bounds(r, k, dtype):
@@ -400,14 +471,15 @@ def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_tem
     return fwd, bwd
 
 
-def check_flash(shape, dtype, gen, backward: bool = True):
+def check_flash(shape, dtype, gen):
     """K1b forward and backward against their plain versions on the same
     seeded inputs: folded (BH, S, D) through ``flash_attention``, or
-    (B, S, H, D) through ``mha``; the library's attention, forward and
-    backward, as a yardstick. Bounds: q, k, v read and o written (forward),
+    (B, S, H, D) through ``mha``; the backward given the forward kernel's
+    saved output and log-sum-exp, and bitwise equal over two calls; the
+    library's attention, forward and backward, as a yardstick, each timed
+    in turns with the kernel. Bounds: q, k, v read and o written (forward),
     q, k, v, dO read and dq, dk, dv written (backward), once each; 4 and 10
-    S*S*D flop per head. ``backward=False``: the forward alone (a length the
-    backward refuses); returns (forward, None)."""
+    S*S*D flop per head."""
     q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
     scale = shape[-1] ** -0.5
     bshd = len(shape) == 4
@@ -416,23 +488,25 @@ def check_flash(shape, dtype, gen, backward: bool = True):
     out = fn(q, k, v, scale)
     torch.cuda.synchronize()
     err = float((out.float() - flash_attention_plain(q, k, v, scale).float()).abs().max())
-    grads, err_bwd = [], 0.0
-    if backward:
-        grads = flash_attention_bwd(q, k, v, do, scale)
-        torch.cuda.synchronize()
-        refs = flash_attention_bwd_plain(q, k, v, do, scale)
-        err_bwd = max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, refs))
+    fout, lse = flash_attention_fwd(q, k, v, scale)
+    lse_err = check_saved_lse(lse, flash_attention_plain(q, k, v, scale, return_lse=True)[1], what)
+    grads = flash_attention_bwd(q, k, v, do, scale, out=fout, lse=lse)
+    again = flash_attention_bwd(q, k, v, do, scale, out=fout, lse=lse)
+    torch.cuda.synchronize()
+    refs = flash_attention_bwd_plain(q, k, v, do, scale, out=fout, lse=lse)
+    err_bwd = max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, refs))
+    if not all(bool(torch.equal(g, a)) for g, a in zip(grads, again)):
+        raise SystemExit(f"{what}: two backward calls on the same inputs differ")
     if out.shape != q.shape or out.dtype != dtype or not bool(torch.isfinite(out).all()) \
             or not all(g.shape == q.shape and bool(torch.isfinite(g).all()) for g in grads):
         raise SystemExit(f"{what}: bad output")
     if not err <= TOL[dtype] or not err_bwd <= TOL[dtype]:
         raise SystemExit(f"{what}: max |kernel - plain| = {err} forward, {err_bwd} backward "
                          f"> {TOL[dtype]}")
-    if backward:
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        fn(*leaves, scale).backward(do)
-        if not all(bool(torch.equal(x.grad, g)) for x, g in zip(leaves, grads)):
-            raise SystemExit(f"{what}: the autograd function's gradients are not the kernel's")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fn(*leaves, scale).backward(do)
+    if not all(bool(torch.equal(x.grad, g)) for x, g in zip(leaves, grads)):
+        raise SystemExit(f"{what}: the autograd function's gradients are not the kernel's")
     # the library's attention on 4-D views of the same tensors (with 3-D ones it
     # takes its unfused fallback): (B, H, S, D) from (B, S, H, D), (1, BH, S, D)
     # from folded
@@ -457,19 +531,22 @@ def check_flash(shape, dtype, gen, backward: bool = True):
                plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, scale), **slow),
                library_ms=library_ms)
     fwd["bound_ms"], fwd["bound_by"] = roofline(fwd_bytes, fwd_flops, dtype)
-    forward_ratios(fwd, kernel, library)
-    if not backward:
-        return fwd, None
+    time_ratios(fwd, kernel, library)
     lq, lk, lv = (heads_first(x).detach().requires_grad_() for x in (q, k, v))
     lout = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
     ldo = heads_first(do)
-    bwd = dict(common, max_abs_err=err_bwd, bytes=bwd_bytes, flops=bwd_flops,
-               kernel_ms=time_ms(lambda: flash_attention_bwd(q, k, v, do, scale)),
-               plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, do, scale), **slow),
-               # the library's backward alone, on a graph built once
-               library_ms=time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
-                                                              retain_graph=True)))
+    kernel = lambda: flash_attention_bwd(q, k, v, do, scale, out=fout, lse=lse)
+    # the library's backward alone, on a graph built once
+    library = lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True)
+    kernel_ms, library_ms = time_pair_ms(kernel, library)
+    bwd = dict(common, max_abs_err=err_bwd, lse_max_abs_err=lse_err, tol_lse=TOL_LSE,
+               bitwise_reproducible=True, bytes=bwd_bytes, flops=bwd_flops,
+               kernel_ms=kernel_ms,
+               plain_ms=time_ms(lambda: flash_attention_bwd_plain(q, k, v, do, scale, out=fout,
+                                                                  lse=lse), **slow),
+               library_ms=library_ms)
     bwd["bound_ms"], bwd["bound_by"] = roofline(bwd_bytes, bwd_flops, dtype)
+    time_ratios(bwd, kernel, library)
     return fwd, bwd
 
 
@@ -1293,6 +1370,15 @@ def forward_resources() -> list:
             for d in (64, 32) for rows in (128, 64)]
 
 
+def backward_resources() -> list:
+    """The same for each backward kernel (dq, dk/dv), head dim and type it
+    is built for (64-row tiles throughout)."""
+    return [dict(kernel=kernel, dtype=str(dtype).replace("torch.", ""), head_dim=d, rows=64,
+                 **backward_kernel_attributes(d, dtype, kernel))
+            for kernel in ("dq", "dkdv") for d in (64, 32)
+            for dtype in (torch.bfloat16, torch.float32)]
+
+
 def kernel_entry(name, source, replaces, launches, head, variants, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches, "max_abs_err": head["max_abs_err"],
@@ -1341,12 +1427,17 @@ def main() -> None:
            for shape in (train_shape, small) for dtype in (bf16, f32)
            for with_bias in (True, False)]
     bwd.append(check_attention_bwd(eval_shape, bf16, True, gen))  # the finetune step's shape
+    # Q and dO (or K and V) stream through shared memory: the backward takes
+    # any S, and 64-row tiles where S % 128 != 0
+    bwd += [check_attention_bwd((1, LONG, 64, 1), bf16, True, gen),
+            check_attention_bwd((2, 192, 128, 2), bf16, True, gen)]
+    lse_forward = forward_lse_check(eval_shape, gen)
     folded = (6 * 2 * PRETRAIN_BATCH, 256, 64)                     # (768, 256, 64): calibrate's
     flash = [check_flash(folded, bf16, gen), check_flash(folded, f32, gen),
              check_flash((8, 64, 32), bf16, gen), check_flash((8, 64, 32), f32, gen),
-             check_flash((2 * PRETRAIN_BATCH, 256, 6, 64), bf16, gen)]
+             check_flash((2 * PRETRAIN_BATCH, 256, 6, 64), bf16, gen),
+             check_flash((1, LONG, 64), bf16, gen)]
     flash_fwd, flash_bwd = [c[0] for c in flash], [c[1] for c in flash]
-    flash_fwd.append(check_flash((1, LONG, 64), bf16, gen, backward=False)[0])
     rows, width = 2 * PRETRAIN_BATCH * 26, 65536
     ce = [check_fused_ce(rows, width, bf16, True, gen),
           check_fused_ce(rows, width, f32, True, gen)]
@@ -1359,24 +1450,21 @@ def main() -> None:
            check_bilateral((3, 17, 45, 3), None, gen)]           # edge tiles in both axes
 
     zeros = lambda *shape, dtype=bf16: torch.zeros(shape, device="cuda", dtype=dtype)
-    # S, D; the backward also refuses S = LONG (K and V of a head in shared
-    # memory), which the forward now takes (checked above)
+    # S, D; both directions take S = LONG (checked above)
     bad_attention = [(1, 100, 3 * 64), (1, 64, 3 * 48)]
-    bad_attention_bwd = bad_attention + [(1, LONG, 3 * 64)]
     bad_flash = [(1, 100, 64), (1, 64, 48)]
-    bad_flash_bwd = bad_flash + [(1, LONG, 64)]
     refused = {
         "K1-fwd": count_refusals("packed attention", [
             (lambda sh=sh: mha_packed_bias(zeros(*sh), None, 1.0, 1)) for sh in bad_attention]),
         "K1-bwd": count_refusals("packed attention backward", [
             (lambda sh=sh: mha_packed_bias_bwd(zeros(*sh), None, zeros(sh[0], sh[1], sh[2] // 3),
-                                               1.0, 1)) for sh in bad_attention_bwd]),
+                                               1.0, 1)) for sh in bad_attention]),
         "K1b-fwd": count_refusals("flash attention", [
             (lambda sh=sh: flash_attention(zeros(*sh), zeros(*sh), zeros(*sh), 1.0))
             for sh in bad_flash]),
         "K1b-bwd": count_refusals("flash attention backward", [
             (lambda sh=sh: flash_attention_bwd(zeros(*sh), zeros(*sh), zeros(*sh), zeros(*sh),
-                                               1.0)) for sh in bad_flash_bwd]),
+                                               1.0)) for sh in bad_flash]),
         "K2": count_refusals("fused CE", [
             lambda: fused_dino_row_ce(zeros(4, 64), zeros(4, 64, dtype=f32), zeros(1, 64)),
             lambda: fused_dino_row_ce(zeros(3, 64), zeros(3, 64), zeros(1, 64), swap_halves=True),
@@ -1392,6 +1480,7 @@ def main() -> None:
             lambda: bilateral_filter_fused(zeros(2, 8, 8, 3, dtype=f32), zeros(2, dtype=f32),
                                            zeros(2, dtype=f32), zeros(2, dtype=f32), 6)])}
     emit({"phase": "kernel_checks", "gpu": card, "refused_unsupported": refused,
+          "forward_lse": lse_forward,
           "passed": {"K1-fwd": len(fwd), "K1-bwd": len(bwd), "K1b-fwd": len(flash_fwd),
                      "K1b-bwd": len(flash_bwd), "K2-fwd": len(ce_fwd), "K2-bwd": len(ce_bwd),
                      "K3": len(bil)}})  # numbers: the kernels line
@@ -1420,7 +1509,7 @@ def main() -> None:
     k1_fwd = {"evaluation": eval_launches, "pretrain": train_launches["K1-fwd"],
               "finetune": ft_launches["K1-fwd"], "calibrate": calib_launches["K1-fwd"]}
     k1_bwd = {"pretrain": train_launches["K1-bwd"], "finetune": ft_launches["K1-bwd"]}
-    resources = forward_resources()
+    resources, bwd_resources = forward_resources(), backward_resources()
     emit({"kernels": [
         kernel_entry("K1-fwd packed_attention_forward (mha_packed_bias)",
                      "ccd_tpu_torch/csrc/packed_attention.cu",
@@ -1429,7 +1518,7 @@ def main() -> None:
         kernel_entry("K1-bwd packed_attention_backward (mha_packed_bias_bwd)",
                      "ccd_tpu_torch/csrc/packed_attention_bwd.cu",
                      "ccd_tpu/ops/flash_attention.py:241", sum(k1_bwd.values()), bwd[0], bwd,
-                     launches_by_path=k1_bwd),
+                     launches_by_path=k1_bwd, resources=bwd_resources),
         kernel_entry("K1b-fwd flash_attention_forward (flash_attention, mha)",
                      "ccd_tpu_torch/csrc/packed_attention.cu",
                      "ccd_tpu/ops/flash_attention.py:80", calib_launches["K1b-fwd"],
@@ -1444,7 +1533,8 @@ def main() -> None:
                      flash_bwd[0], flash_bwd,
                      launches_by_path={"calibrate": calib_launches["K1b-bwd"]},
                      bound_ms_at_measured_copy_rate=flash_bwd[0]["bound_ms_at_measured_copy_rate"],
-                     measured_copy_gb_per_s=calib["measured_copy_gb_per_s"]),
+                     measured_copy_gb_per_s=calib["measured_copy_gb_per_s"],
+                     resources=bwd_resources),
         kernel_entry("K2-fwd fused_dino_ce_forward (fused_dino_row_ce)",
                      "ccd_tpu_torch/csrc/fused_dino_ce.cu",
                      "ccd_tpu/ops/fused_dino_ce.py:147", train_launches["K2-fwd"],

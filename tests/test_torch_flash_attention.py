@@ -125,25 +125,36 @@ def test_mha_packed_gradient_without_bias(interpret_mode):
 
 
 def test_bf16_plain_backward_rounds_like_the_kernel():
-    """bf16 inputs: fp32 softmax and dP, dS rounded to bf16 before the dq and
-    dk products, P rounded before dv, fp32 accumulation, one rounding of the
-    result — spelled out here so the plain version cannot drift."""
+    """bf16 inputs: P from the saved log-sum-exp, delta from the saved bf16
+    output less bv, dP without bv, dS rounded to bf16 before the dq and dk
+    products, P rounded before dv, q + bq rounded once and k without bk,
+    fp32 accumulation, one rounding of the result — spelled out here so the
+    plain version cannot drift."""
     qkv, bias, scale = _inputs(2, 64, 2, 32, 10)
     do = np.random.default_rng(11).normal(size=(2, 64, 64)).astype(np.float32)
     tq, tb, tdo = (torch.from_numpy(a).bfloat16() for a in (qkv, bias, do))
-    out = tfa.mha_packed_bias_bwd_plain(tq, tb, tdo, scale, 2)
+    fwd, lse = tfa.mha_packed_bias_plain(tq, tb, scale, 2, return_lse=True)
+    out = tfa.mha_packed_bias_bwd_plain(tq, tb, tdo, scale, 2, out=fwd, lse=lse)
     assert out.dtype == torch.bfloat16 and out.shape == (2, 64, 192)
-    x = (tq + tb).float().view(2, 64, 3, 2, 32)
-    q, k, v = (x[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    x = tq.view(2, 64, 3, 2, 32)
+    bq, _, bv = tb.view(3, 2, 32)
+    q = (x[:, :, 0] + bq).float().permute(0, 2, 1, 3)
+    k, v = (x[:, :, i].float().permute(0, 2, 1, 3) for i in (1, 2))
     g = tdo.float().view(2, 64, 2, 32).permute(0, 2, 1, 3)
-    p = torch.softmax(q @ k.transpose(-1, -2) * scale, -1)
+    o = (fwd.float().view(2, 64, 2, 32) - bv.float()).permute(0, 2, 1, 3)
+    logits = q @ k.transpose(-1, -2) * scale
+    np.testing.assert_allclose(lse.numpy(), (torch.logsumexp(logits, -1) / np.log(2)).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    p = torch.exp2(logits / np.log(2) - lse[..., None])
     dp = g @ v.transpose(-1, -2)
-    ds = ((p * (dp - (dp * p).sum(-1, keepdim=True))) * scale).bfloat16().float()
+    ds = (p * (dp - (g * o).sum(-1, keepdim=True)) * scale).bfloat16().float()
     want = torch.stack([ds @ k, ds.transpose(-1, -2) @ q,
                         p.bfloat16().float().transpose(-1, -2) @ g]).bfloat16()
     want = want.permute(1, 3, 0, 2, 4).reshape(2, 64, 192)
     # 1 bf16 ulp at O(4): the same fp32 sums may round across a tie differently
     np.testing.assert_allclose(out.float().numpy(), want.float().numpy(), atol=2 ** -6)
+    # without the saved values the plain forward makes them: the same result
+    assert torch.equal(tfa.mha_packed_bias_bwd_plain(tq, tb, tdo, scale, 2), out)
 
 
 def test_bf16_plain_casts_probabilities_like_the_kernel():
@@ -258,8 +269,11 @@ def test_k1b_bf16_plain_rounds_like_the_kernel():
     assert out.dtype == torch.bfloat16 and out.shape == (3, 64, 32)
     want = (p.bfloat16().float() @ vf).bfloat16()
     np.testing.assert_allclose(out.float().numpy(), want.float().numpy(), atol=8e-3)
+    # the backward: p from the base-2 log-sum-exp, delta from the bf16 output
+    lse = torch.logsumexp(qf @ kf.transpose(-1, -2) * scale, -1) / np.log(2)
+    p = torch.exp2(qf @ kf.transpose(-1, -2) * (scale / np.log(2)) - lse[..., None])
     dp = gf @ vf.transpose(-1, -2)
-    ds = ((p * (dp - (dp * p).sum(-1, keepdim=True))) * scale).bfloat16().float()
+    ds = ((p * (dp - (gf * out.float()).sum(-1, keepdim=True))) * scale).bfloat16().float()
     wants = (ds @ kf, ds.transpose(-1, -2) @ qf, p.bfloat16().float().transpose(-1, -2) @ gf)
     for got, want in zip(tfa.flash_attention_bwd_plain(q, k, v, do, scale), wants):
         assert got.dtype == torch.bfloat16
@@ -422,8 +436,11 @@ def test_misaligned_base_is_refused_before_anything_is_built():
 
 
 def test_forward_refusal_texts():
-    """The forward no longer refuses a long S; the backward does, and says so."""
-    assert "backward" in tfa._REFUSALS[-2]
+    """Neither direction refuses a long S any more (K and V, or Q and dO,
+    stream through shared memory): no entry returns -2, and the other
+    refusals keep their texts."""
+    assert -2 not in tfa._REFUSALS
+    assert tfa._REFUSALS[-1] == "unsupported head dim"
     assert "65535" in tfa._REFUSALS[-3]
 
 
@@ -479,3 +496,212 @@ def test_build_hashes_every_header_and_needs_no_include_flags(tmp_path, monkeypa
         f.write("\n// changed\n")
     _, after = _build._paths("packed_attention")
     assert after != before and os.path.dirname(after) == _build.BUILD_DIR
+
+
+# ------------------------- the backward from the forward's saved output and log-sum-exp
+
+LOG2E = 1 / np.log(2)
+
+
+def _micro_dout(b, s, c, seed):
+    return np.random.default_rng(seed).normal(size=(b, s, c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_forward_lse_is_the_base_2_log_sum_exp(dtype):
+    """The saved statistic, in the kernels' units: log2 sum_j 2^x_ij with
+    x_ij = (q_i + bq) . k_j * scale * log2(e), bk left out; so 2^(x - lse)
+    is the softmax and its rows sum to 1, and a new bk leaves lse as it is."""
+    b, s, h, d = MICRO
+    qkv, bias, scale = _inputs(b, s, h, d, 20)
+    tq, tb = torch.from_numpy(qkv), torch.from_numpy(bias)
+    if dtype == "bfloat16":
+        tq, tb = tq.bfloat16(), tb.bfloat16()
+    out, lse = tfa.mha_packed_bias_plain(tq, tb, scale, h, return_lse=True)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert torch.equal(out, tfa.mha_packed_bias_plain(tq, tb, scale, h))
+    x = tq.view(b, s, 3, h, d)
+    bq = tb.view(3, h, d)[0]
+    q = (x[:, :, 0] + bq).float().permute(0, 2, 1, 3)
+    k = x[:, :, 1].float().permute(0, 2, 1, 3)
+    logits = q @ k.transpose(-1, -2) * scale
+    want = torch.log2(torch.exp(logits.double()).sum(-1))
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), rtol=1e-6, atol=1e-5)
+    rows = torch.exp2(logits * LOG2E - lse[..., None]).sum(-1)
+    np.testing.assert_allclose(rows.numpy(), 1.0, atol=1e-5)
+    other = tb.clone()
+    other[h * d:2 * h * d] = 3.0
+    assert torch.equal(tfa.mha_packed_bias_plain(tq, other, scale, h, return_lse=True)[1], lse)
+    # K1b: the same statistic of q . k * scale, (BH, S) folded, (B, H, S) head-split
+    q3 = torch.from_numpy(_qkv((4, 64, 32), 21)[0])
+    _, lse3 = tfa.flash_attention_plain(q3, q3, q3, 0.2, return_lse=True)
+    np.testing.assert_allclose(lse3.numpy(), (torch.logsumexp(q3 @ q3.transpose(1, 2) * 0.2, -1)
+                                              * LOG2E).numpy(), rtol=1e-6, atol=1e-6)
+    q4 = q3.view(2, 2, 64, 32).permute(0, 2, 1, 3)
+    _, lse4 = tfa.flash_attention_plain(q4, q4, q4, 0.2, return_lse=True)
+    assert lse3.shape == tfa._lse_shape(q3) == (4, 64)
+    assert lse4.shape == tfa._lse_shape(q4) == (2, 2, 64)
+    np.testing.assert_allclose(lse4.reshape(4, 64).numpy(), lse3.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5), ("bfloat16", BF16_TOL)])
+def test_backward_from_saved_out_and_lse_matches_pallas(interpret_mode, dtype, atol):
+    """The plain backward handed the forward's output and lse, with nonzero
+    bq, bk and bv (the kernel's algebra: bk and bv left out, delta from
+    out - bv), equals jax.grad of the interpreted Pallas kernel, which adds
+    all three biases first."""
+    b, s, h, d = MICRO
+    qkv, bias, scale = _inputs(b, s, h, d, 22)
+    w = _micro_dout(b, s, h * d, 23)
+    if dtype == "bfloat16":
+        jq, jb, jw = (jnp.asarray(a, jnp.bfloat16) for a in (qkv, bias, w))
+        tq, tb, tw = (torch.from_numpy(a).bfloat16() for a in (qkv, bias, w))
+    else:
+        jq, jb, jw = jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(w)
+        tq, tb, tw = (torch.from_numpy(a) for a in (qkv, bias, w))
+    loss = lambda a: jnp.sum((fa.mha_packed_bias(a, jb, scale, h) * jw).astype(jnp.float32))
+    ref = np.asarray(jax.grad(loss)(jq).astype(jnp.float32))
+    out, lse = tfa.mha_packed_bias_plain(tq, tb, scale, h, return_lse=True)
+    got = tfa.mha_packed_bias_bwd_plain(tq, tb, tw, scale, h, out=out, lse=lse)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=atol)
+    # the wrapper on CPU tensors is the plain version, given the same saved values
+    assert torch.equal(tfa.mha_packed_bias_bwd(tq, tb, tw, scale, h, out=out, lse=lse), got)
+
+
+@pytest.mark.parametrize("layout", ["folded", "bshd"])
+def test_k1b_backward_from_saved_out_and_lse_matches_pallas(interpret_mode, layout):
+    """K1b, folded through flash_attention and (B, S, H, D) through mha: the
+    plain backward from the saved output and lse against jax.grad of the
+    interpreted Pallas kernel, fp32."""
+    shape = (4, 256, 32) if layout == "folded" else (2, 256, 2, 32)
+    jfn = fa.flash_attention if layout == "folded" else fa.mha
+    q, k, v, w = _qkv(shape, 24)
+    scale = shape[-1] ** -0.5
+    ref = _jax_flash_grads(jfn, q, k, v, w, scale)
+    tq, tk, tv, tw = (torch.from_numpy(a) for a in (q, k, v, w))
+    out, lse = tfa.flash_attention_plain(tq, tk, tv, scale, return_lse=True)
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, tw, scale, out=out, lse=lse)
+    wrapper = tfa.flash_attention_bwd(tq, tk, tv, tw, scale, out=out, lse=lse)
+    for name, want, g, gw in zip("qkv", ref, got, wrapper):
+        np.testing.assert_allclose(g.numpy(), want, atol=1e-5, err_msg=f"d{name}")
+        assert torch.equal(gw, g)
+
+
+def _folded_bias_backward(qkv, bias, dout, scale, heads):
+    """The bias algebra of the backward kernels, written out apart from the
+    module: P = exp(logits without bk - their logsumexp), delta from the
+    output less bv, dP without bv, dq = dS k without bk, dk = dS^T (q + bq);
+    everything fp32 and unrounded."""
+    b, s, c3 = qkv.shape
+    d = c3 // 3 // heads
+    q, k, v = qkv.double().view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)
+    bq, bk, bv = bias.double().view(3, 1, heads, 1, d)
+    qb = q + bq
+    logits = qb @ k.transpose(-1, -2) * scale
+    p = torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True))
+    out = p @ (v + bv)                                     # the forward, all biases in
+    g = dout.double().view(b, s, heads, d).permute(0, 2, 1, 3)
+    delta = (g * (out - bv)).sum(-1, keepdim=True)
+    ds = p * (g @ v.transpose(-1, -2) - delta) * scale
+    grads = torch.stack([ds @ k, ds.transpose(-1, -2) @ qb, p.transpose(-1, -2) @ g])
+    return grads.permute(1, 3, 0, 2, 4).reshape(b, s, c3)
+
+
+def test_backward_bias_algebra_matches_pallas_and_bk_drops_out_of_dq(interpret_mode):
+    """The algebra written out (float64) equals jax.grad of the Pallas kernel
+    and the port's plain backward; a different bk alone moves no gradient
+    of qkv beyond fp32 rounding, in JAX's gradient or the port's."""
+    b, s, h, d = MICRO
+    qkv, bias, scale = _inputs(b, s, h, d, 25)
+    w = _micro_dout(b, s, h * d, 26)
+    other = bias.copy()
+    other[h * d:2 * h * d] = np.random.default_rng(27).normal(size=h * d)
+    tq, tw = torch.from_numpy(qkv), torch.from_numpy(w)
+    results = []
+    for bb in (bias, other):
+        ref, _ = _jax_grads(qkv, bb, w, scale, h)
+        written = _folded_bias_backward(tq, torch.from_numpy(bb), tw, scale, h)
+        plain = tfa.mha_packed_bias_bwd_plain(tq, torch.from_numpy(bb), tw, scale, h)
+        np.testing.assert_allclose(written.numpy(), ref, atol=1e-5)
+        np.testing.assert_allclose(plain.numpy(), written.numpy(), atol=1e-5)
+        results.append((ref, plain.numpy()))
+    (ref_a, plain_a), (ref_b, plain_b) = results
+    np.testing.assert_allclose(ref_b, ref_a, atol=1e-5)
+    np.testing.assert_allclose(plain_b, plain_a, atol=1e-5)
+
+
+def test_autograd_functions_save_out_and_lse_and_skip_without_a_gradient():
+    """_PackedAttention saves (qkv, bias, out, lse) and _FlashAttention
+    (q, k, v, out, lse), the lse the plain forward returns; with no gradient
+    wanted neither is recorded."""
+    qkv, bias, scale = _inputs(1, 64, 2, 32, 28)
+    leaf, tb = torch.from_numpy(qkv).requires_grad_(), torch.from_numpy(bias)
+    out = tfa.mha_packed_bias(leaf, tb, scale, 2)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 4 and saved[0] is leaf and torch.equal(saved[1], tb)
+    assert torch.equal(saved[2], out)
+    want_out, want_lse = tfa.mha_packed_bias_plain(leaf.detach(), tb, scale, 2, return_lse=True)
+    assert torch.equal(saved[3], want_lse) and saved[3].shape == (1, 2, 64)
+    with torch.no_grad():
+        assert tfa.mha_packed_bias(leaf, tb, scale, 2).grad_fn is None
+    assert tfa.mha_packed_bias(leaf.detach(), tb, scale, 2).grad_fn is None
+    for shape in ((2, 64, 32), (1, 64, 2, 32)):
+        q = torch.randn(shape, requires_grad=True)
+        fn = tfa.flash_attention if len(shape) == 3 else tfa.mha
+        o = fn(q, q, q, 0.2)
+        saved = o.grad_fn.saved_tensors
+        want_out, want_lse = tfa.flash_attention_plain(q.detach(), q.detach(), q.detach(), 0.2,
+                                                       return_lse=True)
+        assert len(saved) == 5 and torch.equal(saved[3], o) and torch.equal(saved[4], want_lse)
+        assert fn(q.detach(), q.detach(), q.detach(), 0.2).grad_fn is None
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("packed_long_s", True), ("folded_long_s", True), ("bshd_long_s", True),
+    ("out_shape", False), ("out_dtype", False), ("lse_shape", False), ("lse_dtype", False),
+    ("lse_not_contiguous", False)])
+def test_backward_argument_limits(case, ok):
+    """What the backward entries take, checked before anything is built: any
+    S % 64 == 0, S = 4096 included (nothing of a head's rows has to fit in
+    shared memory any more), and the saved output and lse of the forward's
+    shapes and types."""
+    z = lambda *shape, dtype=torch.bfloat16: torch.zeros(*shape, dtype=dtype)
+    if case == "packed_long_s":
+        qkv = z(1, 4096, 3 * 128)
+        assert tfa._kernel_args(qkv, None, 2) is None
+        tfa._check_saved(z(1, 4096, 128), z(1, 2, 4096, dtype=torch.float32), (1, 4096, 128),
+                         (1, 2, 4096), qkv)
+        return
+    if case in ("folded_long_s", "bshd_long_s"):
+        q = z(1, 4096, 64) if case == "folded_long_s" else z(1, 4096, 2, 64)
+        (b, s, h, d), strides = tfa._strided_args([(n, q) for n in
+                                                   ("q", "k", "v", "out", "dout", "dq", "dk",
+                                                    "dv")])
+        assert (b, s, d) == (1, 4096, 64) and len(strides) == 24
+        tfa._check_saved(z(*q.shape), z(*tfa._lse_shape(q), dtype=torch.float32), q.shape,
+                         tfa._lse_shape(q), q)
+        return
+    qkv = z(2, 64, 3 * 64)
+    out, lse = z(2, 64, 64), z(2, 2, 64, dtype=torch.float32)
+    if case == "out_shape":
+        out = z(2, 64, 32)
+    elif case == "out_dtype":
+        out = out.float()
+    elif case == "lse_shape":
+        lse = z(2, 64, 2, dtype=torch.float32)
+    elif case == "lse_dtype":
+        lse = lse.bfloat16()
+    elif case == "lse_not_contiguous":
+        lse = z(2, 64, 2, dtype=torch.float32).transpose(1, 2)
+    with pytest.raises(ValueError):
+        tfa._check_saved(out, lse, (2, 64, 64), (2, 2, 64), qkv)
+
+
+def test_backward_attributes_refuse_what_is_not_built():
+    """The resources entry is asked only for kernels that exist: D 32 or 64,
+    the dq or the dk/dv kernel, bf16 or fp32 (checked before any build)."""
+    for args in ((48, torch.bfloat16, "dq"), (64, torch.bfloat16, "dv"),
+                 (64, torch.float16, "dkdv")):
+        with pytest.raises(ValueError):
+            tfa.backward_kernel_attributes(*args)

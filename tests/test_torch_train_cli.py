@@ -194,3 +194,37 @@ def test_train_cli_on_the_cpu_writes_a_checkpoint_and_resumes(tmp_path, monkeypa
     log = (tmp_path / "workdir" / "smoke_pretrain" / "train.txt").read_text()
     assert "resuming from checkpoint step 2" in log
     assert "it 2 epoch 0" in log and "it 1 epoch 0" in log
+
+
+@pytest.mark.parametrize("name,trains", [("sgd", False), ("lars", False), ("adamw", True),
+                                         ("", True)])
+def test_train_cli_refuses_an_optimizer_it_has_not_ported(tmp_path, monkeypatch, name, trains):
+    """The configuration's ``optimizer`` is read: ``adamw`` (or none, as
+    train.py defaults it) trains; ``sgd`` and ``lars``, which the JAX CLI
+    builds, are refused before any step runs instead of training with AdamW."""
+    import yaml
+
+    from ccd_tpu_torch.cli.train import main
+    monkeypatch.chdir(tmp_path)
+    with open(SMOKE) as f:
+        cfg = yaml.safe_load(f)
+    cfg["optimizer"] = name
+    path = tmp_path / "pretrain.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    args = ["-c", str(path), "--synthetic", "8", "--batch_size_per_gpu", "4", "--device", "cpu",
+            "--max_iters", "1"]
+    if trains:
+        out = main(args)
+        assert out["iteration"] == 1 and np.isfinite(out["last"]["loss"])
+    else:
+        with pytest.raises(NotImplementedError, match=r"queue 1 \(5\)"):
+            main(args)
+        assert not (tmp_path / "saved_models" / "smoke_pretrain").exists()
+
+
+def test_init_pretrain_state_refuses_an_optimizer_it_has_not_ported():
+    student = CCDPretrainModel(arch="vit_micro", out_dim=64, with_seg_head=False)
+    teacher = CCDPretrainModel(arch="vit_micro", out_dim=64, with_seg_head=False)
+    with pytest.raises(NotImplementedError, match="sgd"):
+        init_pretrain_state(student, teacher, optimizer="sgd")
+    assert init_pretrain_state(student, teacher, optimizer="adamw").iteration == 0
