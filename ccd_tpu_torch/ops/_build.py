@@ -86,3 +86,23 @@ def load_library(name: str):
         import ctypes
         _loaded[name] = ctypes.CDLL(build_library(name))
     return _loaded[name]
+
+
+ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads")
+
+
+def kernel_attributes(library: str, entry: str, *args: int) -> dict:
+    """``entry(*args, out)`` of ``csrc/<library>.cu``: a kernel's launch
+    resources on the current card (``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), named as
+    :data:`ATTRIBUTES`."""
+    import ctypes
+
+    fn = getattr(load_library(library), entry)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(ATTRIBUTES))()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return dict(zip(ATTRIBUTES, out))

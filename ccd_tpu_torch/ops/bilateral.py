@@ -4,20 +4,26 @@
 Counterpart of ``ccd_tpu/data/aug_ops.py::_bilateral_pallas`` (K3, the Pallas
 kernel under ``bilateral_filter``). Per sample: a disc window of static max
 radius ``max_radius`` (at most 5: 81 taps) with a per-sample radius² mask
-(the centre tap is never masked), per-sample ``sigma_color`` and
-``sigma_space``, colour distance = L1 over the 3 channels × 255, weight
-``exp(gc·cd² + gs·d²)``, edge-replicate padding, ``num / den`` in fp32.
+(the centre tap is never masked; a radius² that is no square, as 8, admits
+the taps with d² <= 8), per-sample ``sigma_color`` and ``sigma_space``, colour
+distance = L1 over the 3 channels × 255, weight ``exp(gc·cd² + gs·d²)``,
+edge-replicate padding, ``num / den`` in fp32.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 ``csrc/bilateral.cu`` (built with ``nvcc`` at first use, bound with
 ``ctypes``) or raises: it takes fp32 (B, H, W, 3) only; there is no fallback.
-On a CPU tensor it computes :func:`bilateral_filter_plain`, the shifted-tap
-loop of the JAX package's XLA path.
+The kernel is a template on the max radius, so every tap's offset is a
+constant; a thread filters 4 adjacent pixels from a float4 tile that a block
+of 32 x 16 pixels stages with asynchronous 16-byte copies, and a weight is one
+multiply-add chain and one ``ex2.approx``. On a CPU tensor the wrapper
+computes :func:`bilateral_filter_plain`, the shifted-tap loop of the JAX
+package's XLA path.
 
 Bound on an H100 at the pretraining shape (64, 32, 128, 3): one image read
-and one written, 6.3 MB (0.0019 ms at 3.35 TB/s), against ~26 fp32
-operations for each of up to 81 taps a pixel (0.0065 ms at 67 TFLOP/s with
-every sample at radius 5): operations.
+and one written, 6.3 MB (0.0019 ms at 3.35 TB/s), against 11 fp32-pipe
+instructions and one exponential for each of up to 81 taps a pixel (0.0070
+ms at 128 fp32 lanes an SM and 1.98 GHz with every sample at radius 5):
+operations.
 """
 
 from __future__ import annotations
@@ -125,3 +131,14 @@ def bilateral_filter_fused(x: torch.Tensor, sigma_color: torch.Tensor,
 
 
 bilateral_filter_fused.launches = 0
+
+
+def kernel_attributes(max_radius: int = MAX_RADIUS) -> dict:
+    """Launch resources of the kernel built for ``max_radius`` on the current
+    card: registers and local (spill) bytes per thread, shared memory per
+    block, resident blocks per SM, threads per block."""
+    from ccd_tpu_torch.ops._build import kernel_attributes as attributes
+
+    if not 0 <= int(max_radius) <= MAX_RADIUS:
+        raise ValueError(f"max_radius must be in [0, {MAX_RADIUS}], got {max_radius}")
+    return attributes("bilateral", "bilateral_filter_attributes", int(max_radius))

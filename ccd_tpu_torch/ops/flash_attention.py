@@ -72,6 +72,8 @@ from typing import Optional
 
 import torch
 
+from ccd_tpu_torch.ops._build import kernel_attributes
+
 _SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _ROW_TILE = 64                # S must be a multiple of this on the card
 _HEAD_DIMS = (32, 64)
@@ -503,27 +505,6 @@ def _launch_flash(q, k, v, scale: float, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
-_ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads")
-
-
-def _attributes(library: str, entry: str, *args: int) -> dict:
-    """``entry(*args, out)`` of ``csrc/<library>.cu``: a kernel's launch
-    resources on the current card (``cudaFuncGetAttributes`` and
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    import ctypes
-
-    from ccd_tpu_torch.ops._build import load_library
-
-    fn = getattr(load_library(library), entry)
-    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(_ATTRIBUTES))()
-    err = fn(*args, out)
-    if err != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {err}")
-    return dict(zip(_ATTRIBUTES, out))
-
-
 def forward_kernel_attributes(head_dim: int, rows: int) -> dict:
     """Launch resources of the bf16 forward kernel on the current card, for
     ``head_dim`` (32 or 64) and ``rows``-row tiles (128 where S is a multiple
@@ -531,7 +512,7 @@ def forward_kernel_attributes(head_dim: int, rows: int) -> dict:
     memory per block, resident blocks per SM, threads per block."""
     if head_dim not in _HEAD_DIMS or rows not in (64, 128):
         raise ValueError(f"no forward kernel for head dim {head_dim} and {rows}-row tiles")
-    return _attributes("packed_attention", "attention_forward_attributes", head_dim,
+    return kernel_attributes("packed_attention", "attention_forward_attributes", head_dim,
                        int(rows == 128))
 
 
@@ -543,7 +524,7 @@ def backward_kernel_attributes(head_dim: int, dtype: torch.dtype, kernel: str) -
     if head_dim not in _HEAD_DIMS or kernel not in ("dq", "dkdv") \
             or dtype not in _SUPPORTED_DTYPES:
         raise ValueError(f"no {kernel} backward kernel for head dim {head_dim} and {dtype}")
-    return _attributes("packed_attention_bwd", "attention_backward_attributes", head_dim,
+    return kernel_attributes("packed_attention_bwd", "attention_backward_attributes", head_dim,
                        int(dtype == torch.bfloat16), int(kernel == "dkdv"))
 
 

@@ -80,7 +80,8 @@ from ccd_tpu_torch.data.synthetic import make_synthetic_batch, write_synthetic_l
 from ccd_tpu_torch.evaluation import runner
 from ccd_tpu_torch.losses import teacher_temp_schedule
 from ccd_tpu_torch.ops import _build
-from ccd_tpu_torch.ops.bilateral import bilateral_filter_fused, bilateral_filter_plain
+from ccd_tpu_torch.ops.bilateral import (bilateral_filter_fused, bilateral_filter_plain,
+                                         kernel_attributes as bilateral_attributes)
 from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.flash_attention import (backward_kernel_attributes, flash_attention,
                                                flash_attention_bwd, flash_attention_bwd_plain,
@@ -88,7 +89,10 @@ from ccd_tpu_torch.ops.flash_attention import (backward_kernel_attributes, flash
                                                forward_kernel_attributes, mha, mha_packed_bias,
                                                mha_packed_bias_bwd, mha_packed_bias_bwd_plain,
                                                mha_packed_bias_fwd, mha_packed_bias_plain)
-from ccd_tpu_torch.ops.fused_dino_ce import fused_dino_row_ce, fused_dino_row_ce_plain
+from ccd_tpu_torch.ops.fused_dino_ce import (backward_kernel_attributes as ce_backward_attributes,
+                                             fused_dino_ce_backward, fused_dino_ce_backward_plain,
+                                             fused_dino_ce_forward, fused_dino_ce_stats_plain,
+                                             fused_dino_row_ce, fused_dino_row_ce_plain)
 from ccd_tpu_torch.training.finetune_step import (FinetuneState, init_finetune_state,
                                                   make_fused_finetune_step)
 from ccd_tpu_torch.training.pretrain_step import (PretrainState, init_pretrain_state,
@@ -100,6 +104,11 @@ KERNEL_LIBRARIES = ("packed_attention", "packed_attention_bwd", "fused_dino_ce",
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # bf16 tensor cores
               torch.float32: 67e12}    # fp32 outside the tensor cores (no TF32 here)
+# what stands behind the fp32 peak: 132 SMs of 128 fp32 lanes, an FMA counted
+# as two operations, at 1.98 GHz; the special-function unit (ex2, rcp) has 16
+# lanes an SM
+SM_COUNT, FP32_LANES_PER_SM, SFU_LANES_PER_SM = 132, 128, 16
+SM_CLOCK_HZ = PEAK_FLOPS[torch.float32] / (2 * FP32_LANES_PER_SM * SM_COUNT)
 
 SEED = 0
 BATCH = 288
@@ -149,6 +158,11 @@ TOL_DBIAS_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # rounds it to 2^-9 relative, fp32 differs by summation order in the row sums.
 TOL_CE = {torch.bfloat16: (1e-3, 1e-3), torch.float32: (1e-5, 1e-4)}
 TOL_DS_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# The forward's saved statistics (5, R) against fused_dino_ce_stats_plain,
+# each of the five relative to its largest entry: the maxima differ by the
+# rounding of s / st against s * (1 / st), the sums of 65536 positive (or, for
+# the last, mixed-sign) terms by summation order and the fast exponential.
+TOL_STATS_REL = 1e-4
 # Pretraining step, kernels against plain versions, bf16, same state and
 # drop-path draws: the losses are O(1) to O(10) means over thousands of rows
 # whose logits differ by bf16 roundings of either sign; the first moments
@@ -166,15 +180,22 @@ TOL_PROBS = 2e-2
 # common and bf16 rounding flips some; a flip changes every later step of its
 # row. A run through a wrong kernel agrees on about 1/92 of the positions.
 MIN_TOKEN_AGREEMENT = 0.5
-# Bilateral filter, kernel against plain version, fp32 [0,1] images: the same
-# operations in the same order (no FMA contraction in the kernel), so only
-# expf's last bits and the division differ: a few 1e-7 on a weighted mean.
+# Bilateral filter, kernel against plain version, fp32 [0,1] images. The
+# kernel folds 255^2, log2(e) and gs d^2 into the exponent's constants, lets
+# the compiler contract into FMAs and takes ex2.approx (2 ulp): each weight
+# differs from the plain version's exp by a few ulp of its exponent, and the
+# output, a weighted mean of values in [0, 1], by at most that relative error
+# of its heaviest weights (exp(e) |e| ulp peaks near |e| = 1): a few 1e-7.
 TOL_BILATERAL = 1e-5
-# fp32 operations per tap of the bilateral filter: L1 distance (3 sub, 3 abs,
-# 2 add), x255, the exponent's argument (3 mul, 1 add), expf (~4 beside its
-# one exponential on the special-function unit), 3 multiply-adds into the
-# numerator and 1 add into the denominator
-BILATERAL_OPS_PER_TAP = 25
+# fp32-pipe instructions a tap of the bilateral filter cannot avoid: 3
+# subtractions and 2 additions of absolute values (the L1 distance), the
+# exponent's multiply and multiply-add, 3 multiply-adds into the numerator
+# and 1 add into the denominator; beside one exponential on the
+# special-function unit
+BILATERAL_FP32_PER_TAP = 11
+# the former count, 25 fp32 operations a tap (expf's helper instructions
+# included) over the 67 TFLOP/s FMA peak, reported beside the new bound
+BILATERAL_FORMER_OPS_PER_TAP = 25
 
 
 def emit(obj) -> None:
@@ -416,7 +437,14 @@ def fused_ce_bounds(r, k, dtype):
 
 
 def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_temp=0.1):
-    """Fused CE forward and backward kernels against the plain version."""
+    """Fused CE forward and backward kernels against the plain version:
+    through autograd against autograd of the plain chain; then the kernels
+    alone, the forward's saved statistics against
+    ``fused_dino_ce_stats_plain`` and the backward against
+    ``fused_dino_ce_backward_plain`` on those same statistics. Times: single
+    calls between CUDA events (host issue included; the backward as one
+    autograd call) and each kernel's device time alone, beside the library
+    composition's."""
     s = (0.5 * torch.randn(r, k, device="cuda", generator=gen)).to(dtype).requires_grad_()
     t = (0.5 * torch.randn(r, k, device="cuda", generator=gen)).to(dtype)
     c = 0.1 * torch.randn(1, k, device="cuda", generator=gen)
@@ -439,6 +467,23 @@ def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_tem
     ds_rel = ds_err / float(ds_ref.float().abs().max())
     if not ds_rel <= TOL_DS_REL[dtype]:
         raise SystemExit(f"{what}: ds off by {ds_rel} of its largest entry > {TOL_DS_REL[dtype]}")
+    # the kernels alone, the backward on the forward kernel's saved statistics
+    _, stats = fused_dino_ce_forward(s, t, *args)
+    stats_ref = fused_dino_ce_stats_plain(s, t, *args)
+    stats_rel = max(float((stats[i] - stats_ref[i]).abs().max() / stats_ref[i].abs().max())
+                    for i in range(5))
+    if not stats_rel <= TOL_STATS_REL:
+        raise SystemExit(f"{what}: saved statistics off by {stats_rel} of their largest entries "
+                         f"> {TOL_STATS_REL}")
+    saved_args = (c, g, stats, teacher_temp, student_temp, swap_halves)
+    ds_saved = fused_dino_ce_backward(s, t, *saved_args)
+    ds_saved_ref = fused_dino_ce_backward_plain(s, t, *saved_args)
+    saved_rel = float((ds_saved.float() - ds_saved_ref.float()).abs().max()
+                      / ds_saved_ref.float().abs().max())
+    if ds_saved.dtype != dtype or not saved_rel <= TOL_DS_REL[dtype]:
+        raise SystemExit(f"{what}: the backward kernel on saved statistics is off by "
+                         f"{saved_rel} of the plain version's largest entry > {TOL_DS_REL[dtype]}")
+    del ds_saved, ds_saved_ref, stats_ref
     heavy = r * k > 1 << 24
     reps = dict(reps=3, warmup=1) if heavy else {}
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = fused_ce_bounds(r, k, dtype)
@@ -456,18 +501,33 @@ def check_fused_ce(r, k, dtype, swap_halves, gen, teacher_temp=0.04, student_tem
         x.float() / student_temp, torch.softmax((tp.float() - c) / teacher_temp, dim=-1),
         reduction="none")
     lce = library(sl)
+    add_out = torch.empty_like(sd)
+    kernel_fwd = lambda: fused_dino_row_ce(sd, t, *args)
+    kernel_bwd = lambda: torch.autograd.grad(ce, s, g, retain_graph=True)
+    library_bwd = lambda: torch.autograd.grad(lce, sl, g, retain_graph=True)
     fwd = dict(common, max_abs_err=float(ce_err.max()), tol={"rtol": rtol, "atol": atol},
-               kernel_ms=time_ms(lambda: fused_dino_row_ce(sd, t, *args)),
+               stats_rel_err=stats_rel, tol_stats_rel=TOL_STATS_REL,
+               kernel_ms=time_ms(kernel_fwd),
                plain_ms=time_ms(lambda: fused_dino_row_ce_plain(sd, t, *args), **reps),
                library_ms=time_ms(lambda: library(sd), **reps),
-               bound_ms=fwd_bound, bound_by=fwd_by)
+               bound_ms=fwd_bound, bound_by=fwd_by,
+               device_ms=kernel_device_ms(kernel_fwd, "dino_ce_forward"),
+               library_device_ms=kernel_device_ms(lambda: library(sd)))
     bwd = dict(common, max_abs_err=ds_err, rel_err=ds_rel, tol_rel=TOL_DS_REL[dtype],
-               kernel_ms=time_ms(lambda: torch.autograd.grad(ce, s, g, retain_graph=True)),
+               saved_stats_rel_err=saved_rel,
+               kernel_ms=time_ms(kernel_bwd),
                plain_ms=time_ms(lambda: torch.autograd.grad(ref, s, g, retain_graph=True),
                                 **reps),
-               library_ms=time_ms(lambda: torch.autograd.grad(lce, sl, g, retain_graph=True),
-                                  **reps),
-               bound_ms=bwd_bound, bound_by=bwd_by)
+               library_ms=time_ms(library_bwd, **reps),
+               bound_ms=bwd_bound, bound_by=bwd_by,
+               device_ms=kernel_device_ms(kernel_bwd, "dino_ce_backward"),
+               library_device_ms=kernel_device_ms(library_bwd),
+               # the card's rate for this traffic: one elementwise call that
+               # reads two (R, K) arrays of s's type and writes a third
+               same_bytes_add_device_ms=kernel_device_ms(
+                   lambda: torch.add(sd, t, out=add_out)))
+    for entry in (fwd, bwd):
+        entry["bound_over_device_ms"] = entry["bound_ms"] / entry["device_ms"]
     return fwd, bwd
 
 
@@ -560,74 +620,94 @@ def bilateral_taps(rad2: torch.Tensor, max_radius: int) -> int:
 
 
 def bilateral_bound(shape, rad2: torch.Tensor, max_radius: int):
-    """One fp32 image read and one written (and 3 scalars a sample), over the
-    memory rate; the taps this run's radii need times the fp32 operations a
-    tap, over the fp32 rate."""
+    """(least time in ms, what bounds it, taps, the former count's bound) for
+    the filter's own work. Bytes: one fp32 image read and one written (and 3
+    scalars a sample) over the memory rate. Operations: the taps this run's
+    radii need, each with BILATERAL_FP32_PER_TAP instructions on the fp32
+    pipe at 128 lanes a clock per SM, and with one exponential on the
+    special-function unit at 16 a clock per SM; 132 SMs at the clock of the
+    fp32 peak (67e12 / (2 * 128 * 132) = 1.98 GHz). So a tap costs 11/128 of
+    an SM-clock on the fp32 pipe and 1/16 on the special-function unit: the
+    fp32 pipe bounds it, at taps * 11 / 33.5e12 seconds. The former count
+    (25 operations a tap over the 67 TFLOP/s FMA peak) is returned beside."""
     b, h, w, c = shape
     nbytes = 2 * b * h * w * c * 4 + 3 * b * 4
     taps = bilateral_taps(rad2, max_radius) * h * w
-    return (*roofline(nbytes, taps * BILATERAL_OPS_PER_TAP, torch.float32), taps)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp32 = taps * BILATERAL_FP32_PER_TAP / (FP32_LANES_PER_SM * SM_COUNT * SM_CLOCK_HZ) * 1e3
+    t_sfu = taps / (SFU_LANES_PER_SM * SM_COUNT * SM_CLOCK_HZ) * 1e3
+    t_ops = max(t_fp32, t_sfu)
+    former = roofline(nbytes, taps * BILATERAL_FORMER_OPS_PER_TAP, torch.float32)[0]
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), taps, former
 
 
-def kernel_device_ms(fn, name_part: str = "", reps: int = 20) -> float:
+def kernel_device_ms(fn, name_part: str = "", reps: int = 20, attempts: int = 3) -> float:
     """Mean device time per call of ``fn`` of the kernels whose name holds
     ``name_part`` (all of them by default), from the profiler's device trace:
-    the kernels' own time, without the host's time to issue the call."""
+    the kernels' own time, without the host's time to issue the call. A
+    trace that holds none of them is taken again (the profiler now and then
+    drops a short kernel's record), up to ``attempts`` traces."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if name_part in ev.key:
-            us = getattr(ev, "self_device_time_total", None)
-            total += getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
-    if not total > 0:
-        raise SystemExit(f"no device time for a kernel named like {name_part!r} in the trace")
-    return total / reps / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            if name_part in ev.key:
+                us = getattr(ev, "self_device_time_total", None)
+                total += getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+        if total > 0:
+            return total / reps / 1e3
+    raise SystemExit(f"no device time for a kernel named like {name_part!r} in {attempts} traces")
 
 
-def check_bilateral(shape, fixed_radius, gen):
-    """K3 against its plain version on the card, per-sample radius in {1..5}
-    (or one fixed radius) and sigmas in [10, 250], as op_bilateral_blur draws
-    them."""
+def check_bilateral(shape, gen, max_radius=5, rad2=None):
+    """K3 against its plain version on the card, sigmas in [10, 250] as
+    op_bilateral_blur draws them. ``rad2`` per sample: the squares of radii
+    drawn from 1..5 by default, else the values given, cycled over the
+    samples (a value that is no perfect square, as 8, admits taps such as
+    (2, 2) that no integer radius below the next square names)."""
     b = shape[0]
     x = torch.rand(shape, device="cuda", generator=gen)
     sc = 10.0 + 240.0 * torch.rand(b, device="cuda", generator=gen)
     ss = 10.0 + 240.0 * torch.rand(b, device="cuda", generator=gen)
-    if fixed_radius is None:
-        r = 5
+    if rad2 is None:
+        radius = "per sample 1..5"
         rad2 = torch.randint(1, 6, (b,), device="cuda", generator=gen).float() ** 2
     else:
-        r = fixed_radius
-        rad2 = torch.full((b,), float(r * r), device="cuda")
+        radius = f"rad2 {list(rad2)} over the samples"
+        rad2 = torch.tensor([rad2[i % len(rad2)] for i in range(b)], device="cuda")
+    r = max_radius
     out = bilateral_filter_fused(x, sc, ss, rad2, r)
     torch.cuda.synchronize()
     ref = bilateral_filter_plain(x, sc, ss, rad2, r)
     err = float((out - ref).abs().max())
-    what = f"bilateral {shape} radius {'per sample' if fixed_radius is None else r}"
+    what = f"bilateral {shape} max radius {r}, {radius}"
     if out.shape != x.shape or out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
         raise SystemExit(f"{what}: bad output")
     if not err <= TOL_BILATERAL:
         raise SystemExit(f"{what}: max |kernel - plain| = {err} > {TOL_BILATERAL}")
-    bound_ms, bound_by, taps = bilateral_bound(shape, rad2, r)
+    bound_ms, bound_by, taps, former_bound_ms = bilateral_bound(shape, rad2, r)
     call = lambda: bilateral_filter_fused(x, sc, ss, rad2, r)
-    return {"shape": list(shape), "dtype": "float32", "max_radius": r,
-            "radius": "per sample 1..5" if fixed_radius is None else fixed_radius,
+    device_ms = kernel_device_ms(call, "bilateral_kernel")
+    return {"shape": list(shape), "dtype": "float32", "max_radius": r, "radius": radius,
             "max_abs_err": err, "tol": TOL_BILATERAL,
             # the kernel's own time on the card; a call through the wrapper
             # (its few small argument kernels included) takes longer on the
             # host than on the card, so events around calls time the host
-            "kernel_ms": kernel_device_ms(call, "bilateral_kernel"),
+            "kernel_ms": device_ms, "device_ms": device_ms,
             "wrapper_call_ms": time_ms(call),
             "plain_ms": time_ms(lambda: bilateral_filter_plain(x, sc, ss, rad2, r), reps=5,
                                 warmup=1),
             "library_ms": None,  # no library call computes this filter
-            "bound_ms": bound_ms, "bound_by": bound_by, "taps": taps, "exp_count": taps,
-            "bilateral_ops_per_tap": BILATERAL_OPS_PER_TAP}
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_over_device_ms": bound_ms / device_ms,
+            "taps": taps, "exp_count": taps, "fp32_per_tap": BILATERAL_FP32_PER_TAP,
+            "former_bound_ms": former_bound_ms,
+            "former_ops_per_tap": BILATERAL_FORMER_OPS_PER_TAP}
 
 
 def count_refusals(what, calls, expected=(ValueError, TypeError, RuntimeError)):
@@ -1379,6 +1459,39 @@ def backward_resources() -> list:
             for dtype in (torch.bfloat16, torch.float32)]
 
 
+def ce_backward_resources() -> list:
+    """The same for the fused CE's backward kernel, in each type, on its
+    16-byte and its scalar path."""
+    return [dict(dtype=str(dtype).replace("torch.", ""), path="16-byte" if vector else "scalar",
+                 **ce_backward_attributes(dtype, vector))
+            for dtype in (torch.bfloat16, torch.float32) for vector in (True, False)]
+
+
+def bilateral_resources() -> list:
+    """The same for the bilateral kernel, for each static max radius."""
+    return [dict(max_radius=r, **bilateral_attributes(r)) for r in range(6)]
+
+
+def sass_counts(library: str, kernel_part: str) -> dict | None:
+    """Instructions of the kernel whose mangled name holds ``kernel_part`` in
+    the built ``csrc/<library>.cu`` (``cuobjdump -sass``): all of them, the
+    special-function unit's (MUFU) and the fp32 pipe's (FADD, FMUL, FFMA);
+    None where the toolkit has no cuobjdump."""
+    import re
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", _build.build_library(library)], capture_output=True,
+                          text=True, check=True).stdout
+    for block in sass.split("Function : ")[1:]:
+        if kernel_part not in block.split("\n", 1)[0]:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", block)
+        return {"instructions": len(ops), "mufu": ops.count("MUFU"),
+                "fp32": sum(ops.count(op) for op in ("FADD", "FMUL", "FFMA"))}
+    return None
+
+
 def kernel_entry(name, source, replaces, launches, head, variants, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches, "max_abs_err": head["max_abs_err"],
@@ -1445,9 +1558,13 @@ def main() -> None:
            for k in (1000, 1001) for dtype in (bf16, f32) for swap in (True, False)]
     ce.append(check_fused_ce(7, 100, f32, False, gen))       # odd rows without swap_halves
     ce_fwd, ce_bwd = [c[0] for c in ce], [c[1] for c in ce]
-    bil = [check_bilateral((PRETRAIN_BATCH, 32, 128, 3), None, gen),
-           check_bilateral((PRETRAIN_BATCH, 32, 128, 3), 2, gen),
-           check_bilateral((3, 17, 45, 3), None, gen)]           # edge tiles in both axes
+    bil = [check_bilateral((PRETRAIN_BATCH, 32, 128, 3), gen),
+           check_bilateral((PRETRAIN_BATCH, 32, 128, 3), gen, max_radius=2, rad2=[4.0]),
+           check_bilateral((3, 17, 45, 3), gen),                 # edge tiles in both axes
+           # rad2 that no integer radius squares: the tap set is d² <= rad2
+           check_bilateral((PRETRAIN_BATCH, 32, 128, 3), gen, rad2=[2.0, 8.0, 12.5]),
+           check_bilateral((3, 17, 45, 3), gen, rad2=[2.0, 8.0, 12.5]),
+           check_bilateral((PRETRAIN_BATCH, 32, 128, 3), gen, max_radius=0, rad2=[4.0])]
 
     zeros = lambda *shape, dtype=bf16: torch.zeros(shape, device="cuda", dtype=dtype)
     # S, D; both directions take S = LONG (checked above)
@@ -1538,16 +1655,22 @@ def main() -> None:
         kernel_entry("K2-fwd fused_dino_ce_forward (fused_dino_row_ce)",
                      "ccd_tpu_torch/csrc/fused_dino_ce.cu",
                      "ccd_tpu/ops/fused_dino_ce.py:147", train_launches["K2-fwd"],
-                     ce_fwd[0], ce_fwd, launches_by_path={"pretrain": train_launches["K2-fwd"]}),
+                     ce_fwd[0], ce_fwd, launches_by_path={"pretrain": train_launches["K2-fwd"]},
+                     device_ms=ce_fwd[0]["device_ms"]),
         kernel_entry("K2-bwd fused_dino_ce_backward (fused_dino_row_ce, backward)",
                      "ccd_tpu_torch/csrc/fused_dino_ce.cu",
                      "ccd_tpu/ops/fused_dino_ce.py:215", train_launches["K2-bwd"],
-                     ce_bwd[0], ce_bwd, launches_by_path={"pretrain": train_launches["K2-bwd"]}),
+                     ce_bwd[0], ce_bwd, launches_by_path={"pretrain": train_launches["K2-bwd"]},
+                     device_ms=ce_bwd[0]["device_ms"], resources=ce_backward_resources()),
         kernel_entry("K3 bilateral_filter_forward (bilateral_filter_fused)",
                      "ccd_tpu_torch/csrc/bilateral.cu",
                      "ccd_tpu/data/aug_ops.py:995", train_launches["K3"], bil[0], bil,
                      launches_by_path={"pretrain": train_launches["K3"]},
-                     wrapper_call_ms=bil[0]["wrapper_call_ms"])]})
+                     device_ms=bil[0]["device_ms"], wrapper_call_ms=bil[0]["wrapper_call_ms"],
+                     resources=bilateral_resources(),
+                     # max radius 5: 81 taps for each of a thread's 4 pixels
+                     sass_max_radius_5=sass_counts("bilateral", "bilateral_kernelILi5E"),
+                     tap_evaluations_per_thread_max_radius_5=81 * 4)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

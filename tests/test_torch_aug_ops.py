@@ -138,15 +138,19 @@ def test_bilateral_plain_matches_jax_xla(images, per_sample):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
 
 
-@pytest.mark.parametrize("per_sample", [True, False], ids=["per_sample_radius", "radius_2"])
-def test_bilateral_plain_matches_pallas_interpreted(per_sample):
+@pytest.mark.parametrize("rad2,r", [((4.0, 25.0), 5), ((4.0, 4.0), 2), ((2.0, 8.0), 5),
+                                    ((12.5, 8.0), 4), ((4.0, 25.0), 0)],
+                         ids=["per_sample_radius", "radius_2", "rad2_2_8", "rad2_12.5_8",
+                              "max_radius_0"])
+def test_bilateral_plain_matches_pallas_interpreted(rad2, r):
     """As tests/test_aug_ops.py calls the Pallas kernel (interpret mode off
-    the TPU), at a small size."""
+    the TPU), at a small size. A rad2 that is no perfect square (2, 8, 12.5)
+    admits taps that no integer radius names; max radius 0 is the centre tap
+    alone."""
     x = seeded_images(1, (2, 16, 32, 3))
     sc = np.array([60.0, 120.0], np.float32).reshape(2, 1, 1, 1)
     ss = np.array([20.0, 200.0], np.float32).reshape(2, 1, 1, 1)
-    rad2 = (np.array([4.0, 25.0]) if per_sample else np.array([4.0, 4.0])).astype(np.float32)
-    r = 5 if per_sample else 2
+    rad2 = np.array(rad2, np.float32)
     want = JA._bilateral_pallas(jnp.asarray(x), jnp.asarray(sc), jnp.asarray(ss),
                                 jnp.asarray(rad2.reshape(2, 1, 1, 1)), r)
     got = bilateral_filter_plain(torch.from_numpy(x), torch.from_numpy(sc), torch.from_numpy(ss),

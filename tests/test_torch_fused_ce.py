@@ -4,7 +4,12 @@ off-TPU (``fused_dino_ce._interpret``). Mirrors tests/test_fused_ce.py.
 
 fp32 throughout. Tolerances are that file's: values 1e-4 absolute / 1e-5
 relative, gradients 2e-6 absolute / 1e-4 relative (the online softmax and the
-one-shot softmax sum the same terms in another order).
+one-shot softmax sum the same terms in another order). The saved statistics
+(5, R) of ``fused_dino_ce_stats_plain`` are held to ``_run_fwd(...)[1]`` to
+1e-5 relative, each of the five with 1e-5 of its largest entry as the
+absolute limit (the last, sum(p * s'), has terms of either sign); the plain
+backward from saved statistics, in base 2, to ``_bwd_rule`` fed the same
+statistics, at the gradients' limits.
 """
 
 import numpy as np
@@ -16,6 +21,7 @@ import jax.numpy as jnp
 
 from ccd_tpu.losses import dino_char_loss as jax_dino_char_loss
 from ccd_tpu.losses.losses import dino_char_loss_fused as jax_dino_char_loss_fused
+from ccd_tpu.ops import fused_dino_ce as jax_fce
 from ccd_tpu.ops.fused_dino_ce import fused_dino_row_ce as jax_row_ce
 from ccd_tpu_torch.losses import dino_char_loss, dino_char_loss_fused
 from ccd_tpu_torch.ops import fused_dino_ce as tce
@@ -109,6 +115,32 @@ def test_odd_sizes_value_and_grad(r, k, swap):
     np.testing.assert_allclose(ts.grad.numpy(), g_ref, atol=2e-6, rtol=1e-4)
 
 
+@pytest.mark.parametrize("swap", [False, True], ids=["paired", "swap_halves"])
+@pytest.mark.parametrize("k", [300, 1001])
+@pytest.mark.parametrize("r", [8, 14])
+def test_plain_stats_and_backward_from_saved_stats_match_pallas(r, k, swap):
+    """The kernels' own signatures: the forward's saved statistics, and the
+    backward from given statistics (the Pallas backward fed the Pallas
+    forward's statistics, both sides the same numbers)."""
+    s, t, c = _row_inputs(r, k, 8, scale=2.0)
+    js, jt, jc = map(jnp.asarray, (s, t, c))
+    _, jstats = jax_fce._run_fwd(js, jt, jc, 0.04, 0.1, 256, 2048, swap)
+    want = np.array(jstats)
+    stats = tce.fused_dino_ce_stats_plain(*map(torch.from_numpy, (s, t, c)), 0.04, 0.1,
+                                          swap).numpy()
+    assert stats.shape == (5, r) and stats.dtype == np.float32
+    for got_row, want_row in zip(stats, want):
+        np.testing.assert_allclose(got_row, want_row, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want_row).max())
+    g = np.random.default_rng(9).normal(size=(r,)).astype(np.float32)
+    ds_ref = np.asarray(jax_fce._bwd_rule(0.1, 256, 2048, swap, (js, jt, jc, 0.04, jstats),
+                                          jnp.asarray(g))[0])
+    ds = tce.fused_dino_ce_backward_plain(*map(torch.from_numpy, (s, t, c, g, want)), 0.04, 0.1,
+                                          swap)
+    assert ds.dtype == torch.float32
+    np.testing.assert_allclose(ds.numpy(), ds_ref, atol=2e-6, rtol=1e-4)
+
+
 def test_no_gradient_reaches_teacher_or_centre():
     s, t, c = (torch.from_numpy(a).requires_grad_() for a in _row_inputs(4, 64, 6))
     tce.fused_dino_row_ce(s, t, c, 0.04, 0.1, True).sum().backward()
@@ -131,6 +163,16 @@ def test_wrapper_raises_on_wrong_input(bad):
         s, t, swap = torch.zeros(3, 16), torch.zeros(3, 16), True
     with pytest.raises((ValueError, TypeError)):
         tce.fused_dino_row_ce(s, t, c, 0.04, 0.1, swap)
+
+
+def test_kernel_alone_wrappers_refuse_cpu_tensors():
+    """The kernel-alone entry points have no plain fallback."""
+    s, t, c = (torch.from_numpy(a) for a in _row_inputs(4, 64, 10))
+    stats = tce.fused_dino_ce_stats_plain(s, t, c)
+    with pytest.raises(ValueError):
+        tce.fused_dino_ce_forward(s, t, c)
+    with pytest.raises(ValueError):
+        tce.fused_dino_ce_backward(s, t, c, torch.ones(4), stats)
 
 
 def test_cpu_path_leaves_the_launch_counters_alone():
