@@ -17,8 +17,10 @@ Runs on the GPU unless ``--device cpu`` is given; asking for the GPU on a
 machine without one is an error. Checkpoints go to
 ``<output_dir>/<global.name>/`` at every virtual-epoch boundary and at the
 end; a run finds the latest one there and resumes from it. Metrics go to
-the log and, averaged per virtual epoch, to ``<workdir>/log.txt`` (the JAX
-CLI's optional TensorBoard writer is not carried over).
+the log, averaged per virtual epoch to ``<workdir>/log.txt``, and, where
+``torch.utils.tensorboard`` can be imported, as TensorBoard scalars
+``metric/{loss,mask_loss,dino_loss,lr,wd}`` at every show boundary to
+``./tensorboard/<global.name>``.
 """
 
 from __future__ import annotations
@@ -103,6 +105,7 @@ def _train(config, args, device) -> dict:
                                                       pretrain_state_payload,
                                                       restore_pretrain_state)
     from ccd_tpu_torch.utils import MetricLogger
+    from ccd_tpu_torch.utils.logging import summary_writer
 
     # ------------------------------------------------------------ data
     batch_size = int(config.batch_size_per_gpu or 64)
@@ -167,6 +170,7 @@ def _train(config, args, device) -> dict:
     iteration = state.iteration
     start_iteration = iteration
     global_epoch = 0
+    writer = summary_writer(config.global_name)  # None without TensorBoard; before the clock
     start = time.time()
     n_steps = min(total_iters, args.max_iters or total_iters)
     if args.max_iters and args.max_iters > total_iters:
@@ -183,50 +187,57 @@ def _train(config, args, device) -> dict:
             f"{(iteration - n_steps) % k_steps} extra iterations; checkpoints are labeled "
             f"with the actual iteration count")
     profiler, last = None, {}
-    while iteration < n_steps:
-        if args.profile_dir and profiler is None and 10 <= iteration < 10 + k_steps:
-            from torch.profiler import ProfilerActivity, profile
-            activities = [ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-            profiler = profile(activities=activities)
-            profiler.__enter__()
-        raws, masks, ready = next(staged)
-        wait_for_chunk(raws, masks, ready)
-        state, metrics = step_fn(state, raws, masks)
-        iteration += k_steps
-        if profiler is not None and iteration >= 10 + k_steps:
-            profiler.__exit__(None, None, None)
-            os.makedirs(args.profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
-            profiler, args.profile_dir = None, None
+    try:
+        while iteration < n_steps:
+            if args.profile_dir and profiler is None and 10 <= iteration < 10 + k_steps:
+                from torch.profiler import ProfilerActivity, profile
+                activities = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+                profiler = profile(activities=activities)
+                profiler.__enter__()
+            raws, masks, ready = next(staged)
+            wait_for_chunk(raws, masks, ready)
+            state, metrics = step_fn(state, raws, masks)
+            iteration += k_steps
+            if profiler is not None and iteration >= 10 + k_steps:
+                profiler.__exit__(None, None, None)
+                os.makedirs(args.profile_dir, exist_ok=True)
+                profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+                profiler, args.profile_dir = None, None
 
-        # the virtual epoch is a function of the iteration, computed on the
-        # host: the loop waits for the card only to log and to checkpoint
-        epoch = int(iteration * global_batch // config.imgnet_based)
-        if epoch != global_epoch:
-            global_epoch = epoch
-            metric_logger.synchronize_between_processes()
-            logging.info(f"Averaged stats: {metric_logger}")
-            manager.save(iteration, pretrain_state_payload(state))
-            stats = {f"train_{k}": m.global_avg for k, m in metric_logger.meters.items()}
-            stats["epoch"] = epoch
-            with open(log_path, "a") as f:
-                f.write(json.dumps(stats) + "\n")
-            metric_logger = MetricLogger(delimiter="  ")
+            # the virtual epoch is a function of the iteration, computed on the
+            # host: the loop waits for the card only to log and to checkpoint
+            epoch = int(iteration * global_batch // config.imgnet_based)
+            if epoch != global_epoch:
+                global_epoch = epoch
+                metric_logger.synchronize_between_processes()
+                logging.info(f"Averaged stats: {metric_logger}")
+                manager.save(iteration, pretrain_state_payload(state))
+                stats = {f"train_{k}": m.global_avg for k, m in metric_logger.meters.items()}
+                stats["epoch"] = epoch
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(stats) + "\n")
+                metric_logger = MetricLogger(delimiter="  ")
 
-        if iteration % show_iters < k_steps:  # boundary crossed this chunk
-            host = {k: v.cpu().numpy() for k, v in metrics.items()}  # waits for the card
-            last = {k: float(v[-1]) for k, v in host.items()}
-            # NaN-loss abort (reference train.py:239-241), at the logging
-            # sync point so that it costs no extra wait
-            if not np.isfinite(host["loss"]).all():
-                logging.error(f"Loss is {last['loss']}, stopping training")
-                sys.exit(1)
-            metric_logger.update(loss=last["loss"], lr=last["lr"], wd=last["wd"])
-            ips = batch_size * (iteration - start_iteration) / (time.time() - start)
-            logging.info(f"it {iteration - 1} epoch {epoch} loss {last['loss']:.4f} "
-                         f"(mask {last['mask_loss']:.4f} dino {last['dino_loss']:.4f}) "
-                         f"lr {last['lr']:.2e} {ips:.1f} img/s")
+            if iteration % show_iters < k_steps:  # boundary crossed this chunk
+                host = {k: v.cpu().numpy() for k, v in metrics.items()}  # waits for the card
+                last = {k: float(v[-1]) for k, v in host.items()}
+                # NaN-loss abort (reference train.py:239-241), at the logging
+                # sync point so that it costs no extra wait
+                if not np.isfinite(host["loss"]).all():
+                    logging.error(f"Loss is {last['loss']}, stopping training")
+                    sys.exit(1)
+                metric_logger.update(loss=last["loss"], lr=last["lr"], wd=last["wd"])
+                ips = batch_size * (iteration - start_iteration) / (time.time() - start)
+                logging.info(f"it {iteration - 1} epoch {epoch} loss {last['loss']:.4f} "
+                             f"(mask {last['mask_loss']:.4f} dino {last['dino_loss']:.4f}) "
+                             f"lr {last['lr']:.2e} {ips:.1f} img/s")
+                if writer is not None:
+                    for k in ("loss", "mask_loss", "dino_loss", "lr", "wd"):
+                        writer.add_scalar(f"metric/{k}", last[k], iteration)
+    finally:
+        if writer is not None:
+            writer.close()
 
     manager.save(iteration, pretrain_state_payload(state))
     manager.wait()

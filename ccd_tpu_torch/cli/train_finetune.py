@@ -23,8 +23,12 @@ recognizer. Checkpoints go to ``<output_dir>/<global.name>/``: ``ckpt_<it>.pt``
 every ``save_iters`` and at the end, ``best_accuracy.pt`` whenever an
 evaluation is at least as good as the best so far, and
 ``log_all_evaluation.txt``. A run finds the latest ``ckpt_<it>.pt`` there and
-resumes from it, ``best_accuracy`` included. (The JAX CLI's optional
-TensorBoard writer and attention-map images are not carried over.)
+resumes from it, ``best_accuracy`` included. Where ``torch.utils.tensorboard``
+can be imported, ``./tensorboard/<global.name>`` receives the scalars
+``metric/train_loss`` and ``metric/lr`` and the images ``Mask/Input_image``
+and ``Mask/vis_Maps`` (the last decoder layer's cross-attention per character
+over the input) at every show boundary, and ``metric/eval_acc`` after every
+periodic evaluation.
 """
 
 from __future__ import annotations
@@ -54,6 +58,57 @@ def _parse_arguments(argv: Optional[Sequence[str]] = None):
                    help="train on N freshly generated synthetic samples")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
+
+
+def _log_attention_maps(writer, model, images, iteration: int) -> None:
+    """The per-character cross-attention heatmap grid over the input image
+    (parity: root ``train_finetune.py::_log_attention_maps``, reference
+    train_finetune.py:301-326): the last decoder layer's cross-attention of
+    a teacher-forced forward on ``images[:1]`` (normalised, (B, H, W, 3)),
+    without dropout and without a gradient, with a start token followed by
+    padding as targets, averaged over heads. Writes ``Mask/Input_image``
+    (3, H, W) and ``Mask/vis_Maps``, the T maps over the image five to a row.
+    A failure is logged and never stops training."""
+    try:
+        import cv2
+        import numpy as np
+        import torch
+
+        from ccd_tpu_torch.data.augment import denormalize
+
+        decoder = model.decoder
+        targets = torch.full((1, model.max_seq_len), decoder.padding_idx, dtype=torch.long,
+                             device=images.device)
+        targets[:, 0] = decoder.start_idx
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                _logits, attn = model(images[:1], targets, train_mode=True)
+        finally:
+            model.train(was_training)
+        attn = attn.float().mean(1).cpu().numpy()  # (1, T, 256)
+        t = attn.shape[1]
+        img = denormalize(images[0].float()).cpu().numpy()
+        img = np.clip(img * 255.0, 0, 255).astype(np.float32)
+        writer.add_image("Mask/Input_image", (img / 255.0).transpose(2, 0, 1), iteration)
+        overlaps = []
+        for step in range(t):
+            amap = attn[0, step].reshape(8, 32)
+            amap = (amap - amap.min()) / (amap.max() - amap.min() + 1e-12)
+            amap = cv2.resize(amap, (img.shape[1], img.shape[0]))
+            heat = cv2.applyColorMap((amap * 255).astype(np.uint8),
+                                     cv2.COLORMAP_JET).astype(np.float32)
+            overlaps.append(cv2.addWeighted(heat, 0.6, img, 0.4, 0))
+        grid_rows = []
+        for r in range(0, t, 5):
+            row = overlaps[r:r + 5]
+            grid_rows.append(np.concatenate(row + [np.zeros_like(overlaps[0])] * (5 - len(row)),
+                                            axis=1))
+        grid = np.concatenate(grid_rows, axis=0) / 255.0
+        writer.add_image("Mask/vis_Maps", grid.transpose(2, 0, 1), iteration)
+    except Exception as e:  # visualisation must never stop training
+        logging.warning(f"attention maps not written: {type(e).__name__}: {e}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -100,7 +155,7 @@ def _train(config, args, device) -> dict:
     from ccd_tpu_torch.builders import (build_recognizer, load_finetune_payload,
                                         load_pretrained_backbone, load_recognizer_params)
     from ccd_tpu_torch.checkpoints.torch_io import CheckpointManager, save_payload
-    from ccd_tpu_torch.data.augment import abinet_augment, supervised_augment
+    from ccd_tpu_torch.data.augment import abinet_augment, normalize, supervised_augment
     from ccd_tpu_torch.data.dataset import SupervisedDataset, build_dataset
     from ccd_tpu_torch.data.pipeline import (DataLoader, device_chunks, infinite_batches,
                                              stage_finetune_chunk, wait_for_chunk)
@@ -109,6 +164,7 @@ def _train(config, args, device) -> dict:
                                                       init_finetune_state,
                                                       make_multi_finetune_step,
                                                       restore_finetune_state)
+    from ccd_tpu_torch.utils.logging import summary_writer
 
     # ------------------------------------------------------------ data
     batch_size = int(config.dataset_train_batch_size or 288)
@@ -215,37 +271,50 @@ def _train(config, args, device) -> dict:
             f"{(iteration - n_steps) % k_steps} extra iterations; checkpoints are labeled "
             f"with the actual iteration count")
     pending = []
+    writer = summary_writer(config.global_name)  # None without TensorBoard; before the clock
     start = time.time()
-    while iteration < n_steps:
-        images, targets, ready = next(staged)
-        wait_for_chunk(images, targets, ready)
-        state, metrics = step_fn(state, images, targets)
-        pending.append(metrics["loss"])  # (K,) on the device; fetched at log time
-        iteration += k_steps
+    try:
+        while iteration < n_steps:
+            images, targets, ready = next(staged)
+            wait_for_chunk(images, targets, ready)
+            state, metrics = step_fn(state, images, targets)
+            pending.append(metrics["loss"])  # (K,) on the device; fetched at log time
+            iteration += k_steps
 
-        if iteration % show_iters < k_steps:
-            losses = torch.cat(pending).float().cpu().numpy()  # waits for the card
-            pending.clear()
-            if not np.isfinite(losses).all():
-                logging.error(f"Loss is {losses[-1]}, stopping training")
-                sys.exit(1)
-            ips = batch_size * (iteration - start_iteration) / (time.time() - start)
-            logging.info(f"iteration:{iteration - 1}--> train loss:{losses.mean():.4f} "
-                         f"lr:{float(metrics['lr'][-1]):.2e} ({time.time() - start:.0f}s, "
-                         f"{ips:.1f} img/s)")
+            if iteration % show_iters < k_steps:
+                losses = torch.cat(pending).float().cpu().numpy()  # waits for the card
+                pending.clear()
+                if not np.isfinite(losses).all():
+                    logging.error(f"Loss is {losses[-1]}, stopping training")
+                    sys.exit(1)
+                lr = float(metrics["lr"][-1])
+                ips = batch_size * (iteration - start_iteration) / (time.time() - start)
+                logging.info(f"iteration:{iteration - 1}--> train loss:{losses.mean():.4f} "
+                             f"lr:{lr:.2e} ({time.time() - start:.0f}s, {ips:.1f} img/s)")
+                if writer is not None:
+                    writer.add_scalar("metric/train_loss", float(losses.mean()), iteration)
+                    writer.add_scalar("metric/lr", lr, iteration)
+                    # the last batch of the chunk as loaded, before augmentation
+                    _log_attention_maps(writer, model, normalize(images[-1].float() / 255.0),
+                                        iteration)
 
-        if iteration >= k_steps and iteration % eval_iters < k_steps:
-            logging.info("eval model")
-            acc = run_eval(iteration)
-            if acc >= best_accuracy:
-                # durable best checkpoint at a fixed path that the manager's
-                # retention never evicts (reference best_accuracy.pth,
-                # train_finetune.py:373-378), overwritten on improvement
-                best_accuracy = acc
-                save_payload(best_path, finetune_state_payload(state, best_accuracy))
+            if iteration >= k_steps and iteration % eval_iters < k_steps:
+                logging.info("eval model")
+                acc = run_eval(iteration)
+                if writer is not None:
+                    writer.add_scalar("metric/eval_acc", acc, iteration)
+                if acc >= best_accuracy:
+                    # durable best checkpoint at a fixed path that the manager's
+                    # retention never evicts (reference best_accuracy.pth,
+                    # train_finetune.py:373-378), overwritten on improvement
+                    best_accuracy = acc
+                    save_payload(best_path, finetune_state_payload(state, best_accuracy))
 
-        if iteration >= k_steps and iteration % save_iters < k_steps:
-            manager.save(iteration, finetune_state_payload(state, best_accuracy))
+            if iteration >= k_steps and iteration % save_iters < k_steps:
+                manager.save(iteration, finetune_state_payload(state, best_accuracy))
+    finally:
+        if writer is not None:
+            writer.close()
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -1,14 +1,15 @@
-"""Batched, on-device image ops of the severity-5 pretraining augmentation
-and the finetune path's staged chain.
+"""Batched, on-device image ops of the augmentation chains.
 
-Counterpart of ``ccd_tpu/data/aug_ops.py`` for the ops that
-``photometric_augment(severity=5)`` and ``supervised_augment`` reach: the 21
-``ARITHMETIC_OPS``, the 9 ``COLOR_OPS`` and ``op_multiply_brightness``, the
-blur family (``op_sharpen`` and ``op_gaussian_blur``, ``op_average_blur``,
+Counterpart of ``ccd_tpu/data/aug_ops.py``: the ops that
+``photometric_augment`` (severities 1-6) and ``supervised_augment`` reach,
+the 21 ``ARITHMETIC_OPS``, the 9 ``COLOR_OPS``, the blur family
+(``op_sharpen`` and ``op_gaussian_blur``, ``op_average_blur``,
 ``op_median_blur``, ``op_motion_blur``, ``op_bilateral_blur``), the 8
-``CONTRAST_OPS``, the 4 ``WEATHER_OPS`` and ``op_channel_shuffle``, with the
-helpers they use. Images are (B, H, W, 3) float [0, 1] NHWC; every
-op draws its parameters per sample from a key object
+``CONTRAST_OPS``, the 4 ``WEATHER_OPS``, the colour and quantisation ops of
+severities 4 and 6 and ``op_channel_shuffle``, with the helpers they use and
+the combinators ``one_of``, ``sometimes`` and ``some_of_random_order``.
+Images are (B, H, W, 3) float [0, 1] NHWC; every op draws its parameters per
+sample from a key object
 (``ccd_tpu_torch/data/random.py``) with the same calls, in the same order and
 shapes, as the JAX op, then applies them with the same arithmetic. The
 imgaug/cv2 semantics and the documented approximations are those of the JAX
@@ -84,6 +85,27 @@ def sometimes(key, x: torch.Tensor, p: float, op: Op) -> torch.Tensor:
     k1, k2 = key.split()
     gate = k1.bernoulli(p, (x.shape[0], 1, 1, 1)).to(x.dtype)
     return x * (1.0 - gate) + op(k2, x) * gate
+
+
+def some_of_random_order(key, x: torch.Tensor, ops: Sequence[Op]) -> torch.Tensor:
+    """iaa.SomeOf((1, None), ops, random_order=True): per sample, a subset of
+    uniform size in [1, len(ops)] applied one after another in a random order
+    (the severity-2 chain). As in JAX: len(ops) slots; in slot s every op runs
+    on the whole batch with its own key, each sample takes op perm[s] (an
+    index, not a one-hot product) while s < its subset size: len(ops)**2 op
+    evaluations, and no subset's size goes to the host."""
+    n = len(ops)
+    b = x.shape[0]
+    k_perm, k_n, k_ops = key.split(3)
+    perms = k_perm.permutations(b, n)
+    n_apply = k_n.randint((b,), 1, n + 1)
+    for s in range(n):
+        ks = k_ops.fold_in(s).split(n)
+        cands = torch.stack([op(ks[i], x) for i, op in enumerate(ops)])
+        y = _select(cands, perms[:, s])
+        active = (s < n_apply).to(x.dtype)[:, None, None, None]
+        x = x * (1.0 - active) + y * active
+    return x
 
 
 def _pad_edge(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:

@@ -5,7 +5,8 @@ Every op of ``ccd_tpu/data/aug_ops.py`` draws its parameters from a JAX key
 and applies them in the same function. Seeds do not cross frameworks, so the
 port's ops take a key object whose methods mirror, one for one, the
 ``jax.random`` primitives the JAX code calls: ``split``, ``fold_in``,
-``uniform``, ``bernoulli``, ``randint``, ``normal`` and ``laplace``. The ops
+``uniform``, ``bernoulli``, ``randint``, ``normal``, ``laplace`` and
+``permutations`` (a batch of ``jax.random.permutation``). The ops
 make the same calls, in the same order and shapes, as their JAX counterparts;
 a test-side twin of this class holds a real JAX key and answers each call with
 ``jax.random``'s own draw, so that one JAX key drives both packages to the
@@ -53,6 +54,11 @@ class TorchKey:
 
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator, device=self.device)
+
+    def permutations(self, b: int, n: int) -> torch.Tensor:
+        """(b, n) int64: row i a uniform random permutation of ``range(n)``
+        (the argsort of uniforms, so that nothing goes to the host)."""
+        return torch.argsort(self.uniform((b, n)), dim=-1)
 
     def laplace(self, shape: Sequence[int]) -> torch.Tensor:
         """Standard Laplace by the inverse CDF of a uniform in (-1, 1)."""

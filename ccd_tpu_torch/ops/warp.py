@@ -1,4 +1,4 @@
-"""Affine grid generation and bilinear grid sampling.
+"""Affine and projective grid generation and bilinear grid sampling.
 
 Used to warp glyph-cluster maps from the view-1 frame into the view-2 frame
 with the inverse-affine theta recorded by the augmentation pipeline, matching
@@ -23,7 +23,8 @@ import torch
 
 
 def affine_grid(theta: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
-    """Generate a (B, H, W, 2) sampling grid from (B, 2, 3) affine matrices.
+    """Generate a (B, H, W, 2) sampling grid from (B, 2, 3) affine matrices
+    ((B, H, W, k) from (B, k, 3)).
 
     align_corners=False convention: base coords are pixel centers
     ``(2i+1)/S - 1``.
@@ -36,6 +37,17 @@ def affine_grid(theta: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
     # theta stays fp32 on any device
     t = theta[:, None, None]  # (B, 1, 1, 2, 3)
     return t[..., 0] * gx[None, ..., None] + t[..., 1] * gy[None, ..., None] + t[..., 2]
+
+
+def homography_grid(h33: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, 3, 3) projective matrices (normalised coordinates) -> (B, H, W, 2)
+    grid: :func:`affine_grid` with the perspective divide, for the
+    CVRandomPerspective-style warps (``Dino/dataset/transforms.py:198-232``).
+    Products and sums are written out in fp32 (no TF32 on the card); the
+    divide keeps the sign of z and bounds its magnitude below by 1e-6."""
+    mapped = affine_grid(h33, size_hw)  # the same products, over all three rows: (B, H, W, 3)
+    z = mapped[..., 2:3]
+    return mapped[..., :2] / z.abs().clamp_min(1e-6) * torch.sign(z)
 
 
 def _taps(grid: torch.Tensor, h: int, w: int):

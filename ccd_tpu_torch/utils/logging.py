@@ -1,4 +1,5 @@
-"""File-backed logging (parity: Logger, Dino/utils/utils.py:160-188)."""
+"""File-backed logging (parity: Logger, Dino/utils/utils.py:160-188) and the
+trainers' TensorBoard writer."""
 
 from __future__ import annotations
 
@@ -32,3 +33,23 @@ class Logger:
             raise RuntimeError("Invoke Logger.init() first!")
         Logger._root.removeHandler(Logger._handle)
         Logger._handle.close()
+
+
+def summary_writer(name: str):
+    """A TensorBoard ``SummaryWriter`` at ``./tensorboard/<name>``, or None
+    (with one warning) where ``torch.utils.tensorboard`` cannot be imported or
+    the writer cannot be made: the trainers then log without it, as the JAX
+    CLIs do. The import happens here, at call time: it pulls in TensorBoard
+    (and TensorFlow where installed), seconds that an import of a CLI module
+    should not pay."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        log_dir = os.path.join(".", "tensorboard", name)
+        os.makedirs(log_dir, exist_ok=True)
+        writer = SummaryWriter(log_dir=log_dir)
+    except Exception as e:  # logging only: training goes on without the writer
+        logging.warning(f"no TensorBoard writer ({type(e).__name__}: {e}); "
+                        "training goes on without one")
+        return None
+    logging.info(f"TensorBoard: writing {log_dir}")
+    return writer

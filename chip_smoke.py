@@ -31,9 +31,19 @@ shipped configurations, with random weights from a seed:
     words as uint8 and their targets, through ``build_recognizer`` /
     ``init_finetune_state`` / ``make_fused_finetune_step`` with
     ``supervised_augment``;
+  * the pretraining step of ``ccd_pretrain_vit_base.yaml`` at full width
+    (ViT-Base, C = 512, 8 heads, batch 48, ``out_dim`` 65536, bf16, severity
+    5, ``norm_last_layer``), its kernels' launches counted by shape and its
+    first step held against the plain versions; a ViT-Small pretraining step
+    at augmentation severity 2, and a finetune step with ``abinet_augment``;
+  * the augmentation chains beside severity 5 on their own: ``pretrain_views``
+    at severities 1, 2, 3, 4 and 6 (batch 64) and ``abinet_augment`` (batch
+    288), each without a host synchronisation and equal to the same chain run
+    on the CPU with the card run's draws;
   * the ``train_finetune`` CLI on the shipped configuration over synthetic
     LMDBs, its backbone handed over from the ``train`` CLI's checkpoint: 16
-    iterations with evaluations, a checkpoint, and a resume to 32.
+    iterations with evaluations, a checkpoint, and a resume to 32. Both CLIs'
+    TensorBoard event files are read back where ``tensorboard`` is installed.
 
 It checks that each path went through the kernels (launch counts set to 0
 just before a path and read just after) and that its output agrees with a
@@ -46,6 +56,7 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -64,8 +75,10 @@ import torch.nn.functional as F
 import ccd_tpu_torch
 import ccd_tpu_torch.data.aug_ops as aug_ops_mod
 import ccd_tpu_torch.losses.losses as losses_mod
+import ccd_tpu_torch.models.pretrain as pretrain_model_mod
 import ccd_tpu_torch.models.vit as vit_mod
 import ccd_tpu_torch.ops.flash_attention as flash_attention_mod
+import ccd_tpu_torch.ops.fused_dino_ce as fused_dino_ce_mod
 import ccd_tpu_torch.training.finetune_step as finetune_step_mod
 import ccd_tpu_torch.training.pretrain_step as pretrain_step_mod
 from ccd_tpu_torch.builders import build_pretrain_models, build_recognizer
@@ -74,7 +87,7 @@ from ccd_tpu_torch.config import Config
 from ccd_tpu_torch.convertor import AttnConvertor
 from ccd_tpu_torch.data.dataset import SupervisedDataset, build_dataset
 from ccd_tpu_torch.data.pipeline import DataLoader
-from ccd_tpu_torch.data.augment import pretrain_views, supervised_augment
+from ccd_tpu_torch.data.augment import abinet_augment, pretrain_views, supervised_augment
 from ccd_tpu_torch.data.random import TorchKey
 from ccd_tpu_torch.data.synthetic import make_synthetic_batch, write_synthetic_lmdb
 from ccd_tpu_torch.evaluation import runner
@@ -118,6 +131,10 @@ CONFIG = os.path.join(PKG_DIR, "configs", "ccd_finetune_ard.yaml")
 PRETRAIN_CONFIG = os.path.join(PKG_DIR, "configs", "ccd_pretrain_vit_small.yaml")
 PRETRAIN_BATCH = 64                    # -> 2B = 128 images of 256 tokens, 3328 rows of 65536
 GT_STEPS, PREDICTED_STEPS = 6, 3       # pretraining steps in the two mask regimes
+VIT_BASE_CONFIG = os.path.join(PKG_DIR, "configs", "ccd_pretrain_vit_base.yaml")
+VIT_BASE_BATCH = 48                    # -> 2B = 96 images, 2496 rows of 65536
+VIT_BASE_STEPS = 4                     # the compared step and three timed ones
+CHAIN_SEVERITIES = (1, 2, 3, 4, 6)     # pretrain_views at these, beside severity 5
 LAUNCHES_PER_STEP = {"K1-fwd": 24, "K1-bwd": 12, "K1b-fwd": 0, "K1b-bwd": 0, "K2-fwd": 1,
                      "K2-bwd": 1, "K3": 2}
 CLI_ITERS, CLI_RESUMED_ITERS, CLI_WORDS = 16, 48, 1024  # 1024 words: 16 iterations an epoch
@@ -187,6 +204,27 @@ MIN_TOKEN_AGREEMENT = 0.5
 # output, a weighted mean of values in [0, 1], by at most that relative error
 # of its heaviest weights (exp(e) |e| ulp peaks near |e| = 1): a few 1e-7.
 TOL_BILATERAL = 1e-5
+# The DINOHead normalises its bottleneck with the reference's clamp: the
+# cotangent of an all-zero vector (a char slot whose cluster has no support
+# on the 8x32 token grid) is multiplied by 1e12. The reference's validity
+# mask keeps at least 4 slots an image whether or not they pooled anything,
+# and on rendered words most slots pool nothing. Where such a student row is
+# paired with a teacher row that pooled something, the three MLP biases get
+# an exact, large gradient on both sides (the ViT-Small run). Where every such
+# row's teacher pooled nothing too, the kernel's gradient on the row is
+# exactly 0 while the plain version's is fp32 round-off, and the 1e12 makes
+# that round-off the biases' whole first-step gradient (the ViT-Base run:
+# first moments at the clip, 0.3 a tensor, on the plain side, ~3e-4 on the
+# kernels'). The ViT-Base comparison reports them and holds the rest.
+EMPTY_SLOT_BIASES = ("head.mlp.0.bias", "head.mlp.2.bias", "head.mlp.4.bias")
+# An augmentation chain on the card against the same chain on the CPU, fed
+# the card's own draws: the same fp32 arithmetic, summed in another order in
+# places (resizes, means, products of the warps); a sampling position that
+# moves by a few ulps moves the output by that much times the image's step
+# at an edge (up to 1), and a rounding op (k-means, quantisation) may put a
+# value within fp32 noise of an edge on the other side. The CPU tests' limit
+# for the chains with a warp: 1e-4 on at least 99 % of the values.
+TOL_CARD_CPU, MIN_CARD_CPU_SHARE = 1e-4, 0.99
 # fp32-pipe instructions a tap of the bilateral filter cannot avoid: 3
 # subtractions and 2 additions of absolute values (the L1 distance), the
 # exponent's multiply and multiply-add, 3 multiply-adds into the numerator
@@ -993,6 +1031,94 @@ def pretrain_views_checked(key, images):
     return views, theta
 
 
+def pretrain_schedule(config, batch: int) -> dict:
+    """The configuration's schedule, except its length: warm-up and cosine
+    are cut to a run of a few steps so that the learning rate is not ~0
+    throughout."""
+    return dict(
+        base_lr=float(config.lr) * batch / 256.0, min_lr=float(config.min_lr),
+        total_iters=1000, warmup_iters=3, weight_decay=float(config.weight_decay),
+        weight_decay_end=float(config.weight_decay_end),
+        momentum_teacher=float(config.momentum_teacher),
+        teacher_temps=teacher_temp_schedule(
+            float(config.warmup_teacher_temp), float(config.teacher_temp),
+            int(config.warmup_teacher_temp_epochs), 2),
+        clip_grad=config.clip_grad, freeze_last_layer=int(config.freeze_last_layer),
+        global_batch=batch, imgnet_based=int(config.imgnet_based))
+
+
+def pretrain_twin(state: PretrainState) -> PretrainState:
+    """The same state once more (models, moments, centre, generators), for
+    the same first step through the plain versions."""
+    twin = PretrainState(
+        student=copy.deepcopy(state.student), teacher=copy.deepcopy(state.teacher),
+        opt_state=copy.deepcopy(state.opt_state), center=state.center.clone(), iteration=0,
+        generator=torch.Generator(device="cuda"), aug_generator=torch.Generator(device="cuda"))
+    twin.generator.set_state(state.generator.get_state())
+    twin.aug_generator.set_state(state.aug_generator.get_state())
+    return twin
+
+
+def run_pretrain_step(step, st, raw, masks, what: str):
+    """One step, timed with CUDA events: (metrics, the launches it made, ms);
+    a loss that is not finite ends the run."""
+    before = kernel_counts()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    st, metrics = step(st, raw, masks)
+    b.record()
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in kernel_counts().items()}
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(metrics[k]) for k in ("loss", "mask_loss", "dino_loss")):
+        raise SystemExit(f"{what}: a loss is not finite: {metrics}")
+    return metrics, made, a.elapsed_time(b)
+
+
+def against_plain_step(what: str, step, state, twin, raw, masks, first: dict,
+                       left_out=()) -> dict:
+    """The first step again from the same state (``twin``) through the plain
+    versions: no kernel launched, losses, first moments and centre held to
+    the kernels' step. The parameters named in ``left_out`` are reported
+    (first moments' norms on both sides) but not held (see
+    EMPTY_SLOT_BIASES)."""
+    counts = kernel_counts()
+    with plain_versions_in_place_of_kernels():
+        plain, made, _ = run_pretrain_step(step, twin, raw, masks, what)
+    if any(made.values()) or kernel_counts() != counts:
+        raise SystemExit(f"{what}: the plain-version step launched kernels: {made}")
+    loss_rel = {k: abs(first[k] - plain[k]) / abs(plain[k])
+                for k in ("loss", "mask_loss", "dino_loss")}
+    names = [n for n, _ in state.student.named_parameters()]
+    pairs = [(n, a, b) for n, a, b in zip(names, state.opt_state.mu, twin.opt_state.mu)
+             if n not in left_out]
+    by_param = sorted(((float((a - b).norm() / b.norm()), n) for n, a, b in pairs
+                       if float(b.norm()) > 0), reverse=True)
+    not_held = {n: {"kernels": float(a.norm()), "plain": float(b.norm())}
+                for n, a, b in zip(names, state.opt_state.mu, twin.opt_state.mu) if n in left_out}
+    mu, mu_plain = (torch.cat([a.flatten() for _, a, _ in pairs]),
+                    torch.cat([b.flatten() for _, _, b in pairs]))
+    grad_rel = float((mu - mu_plain).norm() / mu_plain.norm())
+    center_rel = float((state.center - twin.center).norm() / twin.center.norm())
+    if not max(loss_rel.values()) <= TOL_STEP_LOSS_REL:
+        raise SystemExit(f"{what}: kernel and plain steps' losses differ: {loss_rel} "
+                         f"> {TOL_STEP_LOSS_REL}")
+    if not grad_rel <= TOL_STEP_GRAD_REL or not float(mu_plain.norm()) > 0:
+        raise SystemExit(f"{what}: kernel and plain steps' gradients differ by "
+                         f"{grad_rel} in L2 > {TOL_STEP_GRAD_REL}; most by parameter: "
+                         f"{by_param[:3]}")
+    if not center_rel <= TOL_STEP_LOSS_REL:
+        raise SystemExit(f"{what}: kernel and plain steps' centres differ by {center_rel}")
+    return {"first_step_plain_versions": plain, "first_step_loss_rel_diff": loss_rel,
+            "tol_step_loss_rel": TOL_STEP_LOSS_REL, "first_step_grad_rel_l2_diff": grad_rel,
+            "tol_step_grad_rel": TOL_STEP_GRAD_REL,
+            "first_step_grad_rel_l2_diff_largest_by_parameter": by_param[:3],
+            "first_step_moment_norms_not_held": not_held,
+            "first_step_grad_checksum": {"kernels": float(mu.abs().sum()),
+                                         "plain": float(mu_plain.abs().sum())},
+            "first_step_center_rel_diff": center_rel}
+
+
 def pretrain_path(card: str) -> dict:
     """The pretraining step at full width; returns the kernels' launches on it."""
     config = Config(PRETRAIN_CONFIG)
@@ -1005,43 +1131,12 @@ def pretrain_path(card: str) -> dict:
             or int(config.batch_size_per_gpu) != PRETRAIN_BATCH:
         raise SystemExit("pretrain path: not the full-width bf16 ViT-Small configuration")
     raw, masks = pretrain_inputs(PRETRAIN_BATCH, seed=321)
-    # the shipped schedule, except its length: warm-up and cosine are cut to
-    # this run's few steps so that the learning rate is not ~0 throughout
-    schedule = dict(
-        base_lr=float(config.lr) * PRETRAIN_BATCH / 256.0, min_lr=float(config.min_lr),
-        total_iters=1000, warmup_iters=3, weight_decay=float(config.weight_decay),
-        weight_decay_end=float(config.weight_decay_end),
-        momentum_teacher=float(config.momentum_teacher),
-        teacher_temps=teacher_temp_schedule(
-            float(config.warmup_teacher_temp), float(config.teacher_temp),
-            int(config.warmup_teacher_temp_epochs), 2),
-        clip_grad=config.clip_grad, freeze_last_layer=int(config.freeze_last_layer),
-        global_batch=PRETRAIN_BATCH, imgnet_based=int(config.imgnet_based))
+    schedule = pretrain_schedule(config, PRETRAIN_BATCH)
     step_gt = make_fused_pretrain_step(gt_mask_epochs=30, **schedule)
     step_predicted = make_fused_pretrain_step(gt_mask_epochs=0, **schedule)
-
-    # the same state once more, for the same first step through the plain versions
-    twin = PretrainState(
-        student=copy.deepcopy(student), teacher=copy.deepcopy(teacher),
-        opt_state=copy.deepcopy(state.opt_state), center=state.center.clone(), iteration=0,
-        generator=torch.Generator(device="cuda"), aug_generator=torch.Generator(device="cuda"))
-    twin.generator.set_state(state.generator.get_state())
-    twin.aug_generator.set_state(state.aug_generator.get_state())
+    twin = pretrain_twin(state)
     teacher0 = [p.detach().clone() for p in teacher.parameters()]
-
-    def run_step(step, st):
-        """One step, timed with CUDA events; the launches it made are checked."""
-        before = kernel_counts()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        st, metrics = step(st, raw, masks)
-        b.record()
-        torch.cuda.synchronize()
-        made = {k: v - before[k] for k, v in kernel_counts().items()}
-        metrics = {k: float(v) for k, v in metrics.items()}
-        if not all(np.isfinite(metrics[k]) for k in ("loss", "mask_loss", "dino_loss")):
-            raise SystemExit(f"pretrain path: a loss is not finite: {metrics}")
-        return metrics, made, a.elapsed_time(b)
+    run_step = lambda step, st: run_pretrain_step(step, st, raw, masks, "pretrain path")
 
     reset_kernel_counts()
     history, step_ms = [], {"gt_masks": [], "predicted_masks": []}
@@ -1051,26 +1146,8 @@ def pretrain_path(card: str) -> dict:
         raise SystemExit(f"pretrain path: step launched {made}, expected {LAUNCHES_PER_STEP}")
 
     # ---- the first step again from the same state, through the plain versions
-    counts = kernel_counts()
-    with plain_versions_in_place_of_kernels():
-        plain, made, _ = run_step(step_gt, twin)
-    if any(made.values()) or kernel_counts() != counts:
-        raise SystemExit(f"pretrain path: the plain-version step launched kernels: {made}")
-    loss_rel = {k: abs(first[k] - plain[k]) / abs(plain[k])
-                for k in ("loss", "mask_loss", "dino_loss")}
-    mu, mu_plain = (torch.cat([m.flatten() for m in st.opt_state.mu]) for st in (state, twin))
-    grad_rel = float((mu - mu_plain).norm() / mu_plain.norm())
-    center_rel = float((state.center - twin.center).norm() / twin.center.norm())
-    if not max(loss_rel.values()) <= TOL_STEP_LOSS_REL:
-        raise SystemExit(f"pretrain path: kernel and plain steps' losses differ: {loss_rel} "
-                         f"> {TOL_STEP_LOSS_REL}")
-    if not grad_rel <= TOL_STEP_GRAD_REL or not float(mu_plain.norm()) > 0:
-        raise SystemExit(f"pretrain path: kernel and plain steps' gradients differ by "
-                         f"{grad_rel} in L2 > {TOL_STEP_GRAD_REL}")
-    if not center_rel <= TOL_STEP_LOSS_REL:
-        raise SystemExit(f"pretrain path: kernel and plain steps' centres differ by {center_rel}")
-    grad_checksum = {"kernels": float(mu.abs().sum()), "plain": float(mu_plain.abs().sum())}
-    del twin, mu, mu_plain
+    compared = against_plain_step("pretrain path", step_gt, state, twin, raw, masks, first)
+    del twin
     torch.cuda.empty_cache()
 
     # ---- more steps, both mask regimes
@@ -1129,11 +1206,7 @@ def pretrain_path(card: str) -> dict:
           "profiled_step_wall_ms": prof_wall, "profiled_device_busy_ms": busy,
           "profiled_device_idle_share": None if busy is None else 1.0 - busy / prof_wall,
           "profiled_kernel_launches": n_kernels, "profiled_top_kernels": top,
-          "augmentation_alone": augment,
-          "first_step": first, "first_step_plain_versions": plain,
-          "first_step_loss_rel_diff": loss_rel, "tol_step_loss_rel": TOL_STEP_LOSS_REL,
-          "first_step_grad_rel_l2_diff": grad_rel, "tol_step_grad_rel": TOL_STEP_GRAD_REL,
-          "first_step_grad_checksum": grad_checksum, "first_step_center_rel_diff": center_rel,
+          "augmentation_alone": augment, "first_step": first, **compared,
           "losses": history, "teacher_moved_max_abs": teacher_moved,
           "center_max_abs": center_moved})
     if augment["host_synchronisations"]:
@@ -1148,6 +1221,22 @@ def finetune_inputs(batch: int, seed: int, max_seq_len: int):
     images, _masks, words = make_synthetic_batch(batch, seed=seed)
     targets = AttnConvertor("DICT90", max_seq_len=max_seq_len, with_unknown=True).str2tensor(words)
     return torch.from_numpy(images).cuda(), torch.from_numpy(targets).cuda()
+
+
+def run_finetune_step(step, st, raw, targets, what: str):
+    """One finetune step, timed with CUDA events: (loss, the launches it
+    made, ms); a loss that is not finite ends the run."""
+    before = kernel_counts()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    st, metrics = step(st, raw, targets)
+    b.record()
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in kernel_counts().items()}
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise SystemExit(f"{what}: the loss is not finite: {loss}")
+    return loss, made, a.elapsed_time(b)
 
 
 def finetune_path(card: str) -> dict:
@@ -1180,19 +1269,7 @@ def finetune_path(card: str) -> dict:
     twin.aug_generator.set_state(state.aug_generator.get_state())
     weights0 = [p.detach().clone() for p in model.parameters()]
 
-    def run_step(st):
-        """One step, timed with CUDA events; the launches it made are checked."""
-        before = kernel_counts()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        st, metrics = step(st, raw, targets)
-        b.record()
-        torch.cuda.synchronize()
-        made = {k: v - before[k] for k, v in kernel_counts().items()}
-        loss = float(metrics["loss"])
-        if not np.isfinite(loss):
-            raise SystemExit(f"finetune path: the loss is not finite: {loss}")
-        return loss, made, a.elapsed_time(b)
+    run_step = lambda st: run_finetune_step(step, st, raw, targets, "finetune path")
 
     reset_kernel_counts()
     first, made, _ = run_step(state)
@@ -1277,6 +1354,353 @@ def finetune_path(card: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def launch_shapes():
+    """Inside, every launch of the attention and CE kernels is counted by
+    (C entry, shape): the attention's (B, S, 3C) of its packed qkv (or the
+    folded operand) and its heads, the CE's (R, K)."""
+    seen = collections.Counter()
+    real_attention, real_ce = flash_attention_mod._c_call, fused_dino_ce_mod._call
+
+    def attention_spy(entry, library, tensors, dims, *args, **kwargs):
+        b, s, h, d = dims
+        seen[(entry, (b, s, 3 * h * d), h)] += 1
+        return real_attention(entry, library, tensors, dims, *args, **kwargs)
+
+    def ce_spy(entry, tensors, s, *args, **kwargs):
+        seen[(entry, tuple(s.shape))] += 1
+        return real_ce(entry, tensors, s, *args, **kwargs)
+
+    flash_attention_mod._c_call, fused_dino_ce_mod._call = attention_spy, ce_spy
+    try:
+        yield seen
+    finally:
+        flash_attention_mod._c_call, fused_dino_ce_mod._call = real_attention, real_ce
+
+
+class RecordingKey:
+    """A ``TorchKey`` that keeps, in order, every draw it hands out."""
+
+    def __init__(self, generator: torch.Generator):
+        self.key, self.device, self.draws = TorchKey(generator), generator.device, []
+
+    def split(self, n: int = 2):
+        return [self] * n
+
+    def fold_in(self, data: int):
+        return self
+
+    def _kept(self, draw):
+        self.draws.append(draw)
+        return draw
+
+    def uniform(self, shape, lo=0.0, hi=1.0):
+        return self._kept(self.key.uniform(shape, lo, hi))
+
+    def bernoulli(self, p, shape):
+        return self._kept(self.key.bernoulli(p, shape))
+
+    def randint(self, shape, lo, hi):
+        return self._kept(self.key.randint(shape, lo, hi))
+
+    def normal(self, shape):
+        return self._kept(self.key.normal(shape))
+
+    def laplace(self, shape):
+        return self._kept(self.key.laplace(shape))
+
+    def permutations(self, b, n):
+        return self._kept(self.key.permutations(b, n))
+
+
+class ReplayKey:
+    """Hands out a :class:`RecordingKey`'s draws again, in order, on the
+    CPU: the same function then sees the card's draws."""
+
+    def __init__(self, draws):
+        self.draws, self.device, self.used = [d.cpu() for d in draws], torch.device("cpu"), 0
+
+    def split(self, n: int = 2):
+        return [self] * n
+
+    def fold_in(self, data: int):
+        return self
+
+    def _next(self, shape):
+        draw = self.draws[self.used]
+        if tuple(draw.shape) != tuple(shape):
+            raise SystemExit(f"replay: draw {self.used} is {tuple(draw.shape)}, the function "
+                             f"asks for {tuple(shape)}")
+        self.used += 1
+        return draw
+
+    def uniform(self, shape, lo=0.0, hi=1.0):
+        return self._next(shape)
+
+    def bernoulli(self, p, shape):
+        return self._next(shape)
+
+    def randint(self, shape, lo, hi):
+        return self._next(shape)
+
+    def normal(self, shape):
+        return self._next(shape)
+
+    def laplace(self, shape):
+        return self._next(shape)
+
+    def permutations(self, b, n):
+        return self._next((b, n))
+
+
+def chain_check(raw: torch.Tensor, augment, name: str) -> dict:
+    """An augmentation chain (``augment(key, images)``; its output, or the
+    first of its outputs, has the batch first) at the card: alone (time,
+    idle share, launches, host synchronisations: none allowed), finite and
+    different from its input, and held against the same function on a CPU
+    copy of the images fed the card run's own draws."""
+    before = kernel_counts()
+    alone = augmentation_alone(raw, augment, name)
+    if alone["host_synchronisations"]:
+        raise SystemExit(f"augmentation: {name} waits for the card "
+                         f"{alone['host_synchronisations']} times; it must not")
+    images = raw.float() / 255.0
+    recorder = RecordingKey(torch.Generator(device="cuda").manual_seed(SEED + 7))
+    card = augment(recorder, images)
+    replay = ReplayKey(recorder.draws)
+    cpu = augment(replay, images.cpu())
+    kernels = {k: v - before[k] for k, v in kernel_counts().items()}
+    card, cpu = (card, cpu) if isinstance(card, tuple) else ((card,), (cpu,))
+    if replay.used != len(recorder.draws):
+        raise SystemExit(f"{name}: the CPU run took {replay.used} of {len(recorder.draws)} "
+                         "draws")
+    diffs = []
+    for a, b in zip(card, cpu):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise SystemExit(f"{name}: the card's output is not finite or not the CPU's shape")
+        diffs.append((a.cpu() - b).abs().flatten())
+    diff = torch.cat(diffs)
+    worst, share = float(diff.max()), float((diff <= TOL_CARD_CPU).double().mean())
+    out = card[0]
+    changed = float((out[:, 1] - out[:, 0]).abs().max()) if out.dim() == 5 \
+        else float((out - images).abs().max())  # views: the photometric view against the raw one
+    if not share >= MIN_CARD_CPU_SHARE or not changed > 1e-3:
+        raise SystemExit(f"{name}: card and CPU agree to {TOL_CARD_CPU} on {share} of the "
+                         f"values (< {MIN_CARD_CPU_SHARE}), or the output equals the input "
+                         f"(largest change {changed})")
+    return dict(alone, draws=len(recorder.draws), card_vs_cpu_max_abs_diff=worst,
+                card_vs_cpu_share_within_tol=share, tol_card_cpu=TOL_CARD_CPU,
+                min_share=MIN_CARD_CPU_SHARE, largest_change=changed,
+                kernel_launches=kernels)
+
+
+def augmentation_chains(card: str) -> None:
+    """``pretrain_views`` at every severity but 5 (which the pretraining path
+    runs) at the pretraining batch, and ``abinet_augment`` at the finetune
+    batch, on rendered words: each through :func:`chain_check`. None of
+    these chains has a bilateral filter, so none launches a kernel."""
+    raw_pretrain, _masks = pretrain_inputs(PRETRAIN_BATCH, seed=777)
+    raw_finetune, _targets = finetune_inputs(BATCH, seed=778, max_seq_len=25)
+    chains = {}
+    for severity in CHAIN_SEVERITIES:
+        views = lambda key, images, s=severity: pretrain_views(key, images, severity=s)
+        chains[f"pretrain_views_severity_{severity}"] = chain_check(
+            raw_pretrain, views, f"pretrain_views(severity={severity})")
+    chains["abinet_augment"] = chain_check(raw_finetune, abinet_augment, "abinet_augment")
+    launched = {name: c["kernel_launches"] for name, c in chains.items()
+                if any(c["kernel_launches"].values())}
+    emit({"phase": "augmentation_chains", "gpu": card, "image": [32, 128, 3],
+          "batch": {"pretrain_views": PRETRAIN_BATCH, "abinet_augment": BATCH},
+          "chains": chains})
+    if launched:
+        raise SystemExit(f"augmentation chains launched kernels: {launched}")
+
+
+def vit_base_pretrain_path(card: str) -> dict:
+    """``ccd_pretrain_vit_base.yaml`` at full width (ViT-Base, C = 512, 8
+    heads, batch 48, ``out_dim`` 65536, bf16, severity 5,
+    ``norm_last_layer: True``): VIT_BASE_STEPS fused steps on rendered words,
+    the first compared with the same step through the plain versions, the
+    launches counted by shape, the frozen gain ``weight_g`` held bit for bit
+    while ``weight_v`` trains, then a profiled step. Returns the kernels'
+    launches."""
+    config = Config(VIT_BASE_CONFIG)
+    student, teacher = build_pretrain_models(config, device="cuda",
+                                             generator=torch.Generator().manual_seed(SEED))
+    state = init_pretrain_state(student, teacher, seed=SEED, optimizer=str(config.optimizer))
+    vit, batch = student.backbone, int(config.batch_size_per_gpu)
+    severity = int(config.dataset_augmentation_severity)
+    if student.dtype != torch.bfloat16 or len(vit.blocks) != 12 or vit.embed_dim != 512 \
+            or vit.blocks[0].attn.num_heads != 8 or student.out_dim != 65536 \
+            or not student.norm_last_layer or batch != VIT_BASE_BATCH or severity != 5:
+        raise SystemExit("ViT-Base pretrain path: not the full-width bf16 ViT-Base "
+                         "configuration with norm_last_layer at batch 48, severity 5")
+    raw, masks = pretrain_inputs(batch, seed=432)
+    # the compared step on the configuration's schedule, which freezes the
+    # last layer for the first virtual epoch (all of this run), as the
+    # ViT-Small path's does; the steps after it train the last layer, so
+    # that weight_v moves while the frozen gain must not
+    schedule = pretrain_schedule(config, batch)
+    step = make_fused_pretrain_step(severity=severity, gt_mask_epochs=30, **schedule)
+    step_open = make_fused_pretrain_step(severity=severity, gt_mask_epochs=30,
+                                         **dict(schedule, freeze_last_layer=0))
+    twin = pretrain_twin(state)
+    gain0 = student.head.last_layer.weight_g.detach().clone()
+    direction0 = student.head.last_layer.weight_v.detach().clone()
+    what = "ViT-Base pretrain path"
+
+    reset_kernel_counts()
+    pooled = []
+    real_pool = pretrain_model_mod.char_attention_pool
+
+    def pool_spy(features, clusters):
+        vecs, index = real_pool(features, clusters)
+        pooled.append(int((vecs.detach().abs().amax(-1) == 0).sum()))
+        return vecs, index
+
+    pretrain_model_mod.char_attention_pool = pool_spy
+    try:
+        with launch_shapes() as shapes:
+            first, made, _ = run_pretrain_step(step, state, raw, masks, what)
+    finally:
+        pretrain_model_mod.char_attention_pool = real_pool
+    rows = 2 * batch * student.num_slots
+    want_shapes = {("packed_attention_forward", (2 * batch, 256, 3 * 512), 8): 24,
+                   ("packed_attention_backward", (2 * batch, 256, 3 * 512), 8): 12,
+                   ("fused_dino_ce_forward", (rows, 65536)): 1,
+                   ("fused_dino_ce_backward", (rows, 65536)): 1}
+    if made != LAUNCHES_PER_STEP or dict(shapes) != want_shapes:
+        raise SystemExit(f"{what}: step launched {made} at {dict(shapes)}, expected "
+                         f"{LAUNCHES_PER_STEP} at {want_shapes}")
+    compared = against_plain_step(what, step, state, twin, raw, masks, first,
+                                  left_out=EMPTY_SLOT_BIASES)
+    del twin
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    history, step_ms = [first], []
+    for _ in range(VIT_BASE_STEPS - 1):
+        metrics, made, ms = run_pretrain_step(step_open, state, raw, masks, what)
+        if made != LAUNCHES_PER_STEP:
+            raise SystemExit(f"{what}: step launched {made}, expected {LAUNCHES_PER_STEP}")
+        history.append(metrics)
+        step_ms.append(ms)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    prof_wall, busy, top, n_kernels = device_busy(lambda: step_open(state, raw, masks))
+    n_steps = VIT_BASE_STEPS + 1
+    launches = kernel_counts()
+    if launches != {k: v * n_steps for k, v in LAUNCHES_PER_STEP.items()} \
+            or state.iteration != n_steps:
+        raise SystemExit(f"{what}: {launches} launches over {state.iteration} steps")
+    gain_frozen = bool(torch.equal(student.head.last_layer.weight_g, gain0))
+    direction_moved = float((student.head.last_layer.weight_v - direction0).abs().max())
+    if not gain_frozen or not direction_moved > 0:
+        raise SystemExit(f"{what}: last_layer.weight_g moved (norm_last_layer freezes it), "
+                         f"or weight_v did not ({direction_moved})")
+    emit({"phase": "main_path", "path": "pretrain_vit_base", "gpu": card,
+          "config": "ccd_pretrain_vit_base.yaml", "arch": "vit_base student + teacher",
+          "embed_dim": vit.embed_dim, "heads": vit.blocks[0].attn.num_heads,
+          "blocks": len(vit.blocks), "dtype": "bfloat16", "batch": batch,
+          "severity": severity, "out_dim": student.out_dim, "logit_rows": rows,
+          "norm_last_layer": True,
+          "freeze_last_layer": {"compared_step": int(config.freeze_last_layer), "later_steps": 0},
+          "weight_g_bit_identical_after_steps": gain_frozen,
+          "weight_v_moved_max_abs": direction_moved,
+          "steps": n_steps, "launches_per_step": LAUNCHES_PER_STEP,
+          "first_step_launches_by_shape": [[*k, v] for k, v in shapes.items()],
+          "first_step_char_slots_pooled_to_zero": {"teacher": pooled[0], "student": pooled[1],
+                                                   "of": rows},
+          "kernel_launches": launches, "step_ms": step_ms,
+          "step_ms_median": statistics.median(step_ms),
+          "images_per_s": batch / statistics.median(step_ms) * 1e3,
+          "peak_device_memory_bytes": peak_bytes,
+          "profiled_step_wall_ms": prof_wall, "profiled_device_busy_ms": busy,
+          "profiled_device_idle_share": None if busy is None else 1.0 - busy / prof_wall,
+          "profiled_kernel_launches": n_kernels, "profiled_top_kernels": top,
+          "first_step": first, **compared, "losses": history})
+    return launches
+
+
+def severity_2_pretrain_step(card: str) -> dict:
+    """One fused ViT-Small pretraining step at augmentation severity 2 (the
+    SomeOf chain with crops, elastic and perspective warps) at batch 64, and
+    a second one timed: finite losses, the step's kernels launched (no K3:
+    severity 2 has no bilateral filter). Returns the kernels' launches."""
+    config = Config(PRETRAIN_CONFIG)
+    student, teacher = build_pretrain_models(config, device="cuda",
+                                             generator=torch.Generator().manual_seed(SEED))
+    state = init_pretrain_state(student, teacher, seed=SEED)
+    raw, masks = pretrain_inputs(PRETRAIN_BATCH, seed=543)
+    step = make_fused_pretrain_step(severity=2, gt_mask_epochs=30,
+                                    **pretrain_schedule(config, PRETRAIN_BATCH))
+    want = dict(LAUNCHES_PER_STEP, K3=0)
+    reset_kernel_counts()
+    runs = [run_pretrain_step(step, state, raw, masks, "severity-2 pretrain step")
+            for _ in range(2)]
+    launches = kernel_counts()
+    if any(made != want for _, made, _ in runs):
+        raise SystemExit(f"severity-2 pretrain step: launched {[m for _, m, _ in runs]}, "
+                         f"expected {want} a step")
+    emit({"phase": "main_path", "path": "pretrain_severity_2", "gpu": card,
+          "config": "ccd_pretrain_vit_small.yaml, augmentation_severity 2",
+          "batch": PRETRAIN_BATCH, "steps": 2, "kernel_launches": launches,
+          "losses": [m for m, _, _ in runs], "step_ms": [ms for _, _, ms in runs]})
+    return launches
+
+
+def abinet_finetune_step(card: str) -> dict:
+    """One fused finetune step of ``ccd_finetune_ard.yaml`` (ViT-Small +
+    6-layer NRTR, bf16, batch 288) with ``aug_fn=abinet_augment`` (the
+    ``dataset.use_abi`` chain), and a second one timed: finite losses, the
+    step's kernels launched. Returns the kernels' launches."""
+    config = Config(CONFIG)
+    model, _ = build_recognizer(config, device="cuda",
+                                generator=torch.Generator().manual_seed(SEED))
+    state = init_finetune_state(model, seed=SEED)
+    raw, targets = finetune_inputs(BATCH, seed=765, max_seq_len=config.decoder_max_seq_len)
+    step = make_fused_finetune_step(
+        aug_fn=abinet_augment, base_lr=float(config.lr), min_lr=float(config.min_lr),
+        total_iters=1000, warmup_iters=3, weight_decay=float(config.weight_decay),
+        clip_grad=config.clip_grad)
+    reset_kernel_counts()
+    runs = [run_finetune_step(step, state, raw, targets, "abinet finetune step")
+            for _ in range(2)]
+    launches = kernel_counts()
+    if any(made != FT_LAUNCHES_PER_STEP for _, made, _ in runs):
+        raise SystemExit(f"abinet finetune step: launched {[m for _, m, _ in runs]}, expected "
+                         f"{FT_LAUNCHES_PER_STEP} a step")
+    emit({"phase": "main_path", "path": "finetune_abinet", "gpu": card,
+          "config": "ccd_finetune_ard.yaml, dataset.use_abi", "batch": BATCH, "steps": 2,
+          "kernel_launches": launches, "losses": [loss for loss, _, _ in runs],
+          "step_ms": [ms for _, _, ms in runs]})
+    return launches
+
+
+PRETRAIN_TAGS = {f"metric/{k}" for k in ("loss", "mask_loss", "dino_loss", "lr", "wd")}
+FINETUNE_TAGS = {"metric/train_loss", "metric/lr", "metric/eval_acc", "Mask/Input_image",
+                 "Mask/vis_Maps"}
+
+
+def tensorboard_report(log_dir: str, log: str, want: set) -> dict:
+    """Whether a CLI made its TensorBoard writer (it logs the directory, or
+    why there is none) and, where it did, the tags of its event files as
+    TensorBoard reads them: those of the JAX CLI, or the run fails. Without
+    ``tensorboard`` on the machine the CLI trains without a writer, as the
+    JAX CLI does: reported, not a failure."""
+    if "TensorBoard: writing" not in log:
+        reason = [ln for ln in log.splitlines() if "no TensorBoard writer" in ln]
+        return {"writer": False, "reason": reason[0][-300:] if reason else None}
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    events = EventAccumulator(log_dir)
+    events.Reload()
+    tags = events.Tags()
+    found = set(tags["scalars"]) | set(tags["images"])
+    if found != want:
+        raise SystemExit(f"TensorBoard under {log_dir}: tags {sorted(found)}, expected "
+                         f"{sorted(want)}")
+    return {"writer": True, "tags": sorted(found),
+            "event_files": len([f for f in os.listdir(log_dir) if "tfevents" in f])}
+
+
 def train_cli_phase(card: str, keep_dir: str) -> str:
     """``python -m ccd_tpu_torch.cli.train`` on the full ViT-Small pretraining
     configuration over a synthetic LMDB of rendered words with masks (written
@@ -1338,6 +1762,9 @@ def train_cli_phase(card: str, keep_dir: str) -> str:
                                  f"checkpoint or a wrong resume ({resumed}):\n{log[-4000:]}")
             (t_first, it_first, _), (t_last, it_last, _) = logged[0], logged[-1]
             runs.append({"loader_threads": workers or int(cfg["dataset"]["num_workers"]),
+                         "tensorboard": tensorboard_report(
+                             os.path.join(run_dir, "tensorboard", cfg["global"]["name"]), log,
+                             PRETRAIN_TAGS),
                          "max_iters": max_iters, "resumed_from": CLI_ITERS if resumed else 0,
                          "images_per_s_with_loading": float(rate.group(1)),
                          "images_per_s_with_loading_after_first_dispatch":
@@ -1412,7 +1839,10 @@ def train_finetune_cli_phase(card: str, pretrain_checkpoint: str) -> dict:
                 raise SystemExit(f"train_finetune CLI to {max_iters}: no rate, a missing or "
                                  f"non-finite loss, no evaluation, checkpoint or best payload, "
                                  f"a wrong resume ({resumed}) or no hand-off:\n{log[-4000:]}")
-            runs.append({"max_iters": max_iters, "resumed_from": FT_CLI_ITERS if resumed else 0,
+            runs.append({"tensorboard": tensorboard_report(
+                             os.path.join(tmp, "tensorboard", cfg["global"]["name"]), log,
+                             FINETUNE_TAGS),
+                         "max_iters": max_iters, "resumed_from": FT_CLI_ITERS if resumed else 0,
                          "images_per_s_with_loading": float(rate.group(1)),
                          "logged_losses": losses, "total_accuracy_lines": accuracy,
                          "evaluations_logged_so_far": evaluations, "process_wall_s": wall,
@@ -1528,8 +1958,13 @@ def main() -> None:
     bf16, f32 = torch.bfloat16, torch.float32
     eval_shape, train_shape, small = (BATCH, 256, 384, 6), (2 * PRETRAIN_BATCH, 256, 384, 6), \
         (4, 256, 64, 2)
+    # ViT-Base (C = 512, 8 heads) and ViT-Tiny (C = 192, 3 heads) at their
+    # pretraining batches: 2 x 48 and 2 x 64 images
+    base_shape, tiny_shape = (2 * VIT_BASE_BATCH, 256, 512, 8), (2 * PRETRAIN_BATCH, 256, 192, 3)
     fwd = [check_attention(eval_shape, bf16, True, gen),
            check_attention(train_shape, bf16, True, gen),
+           check_attention(base_shape, bf16, True, gen),
+           check_attention(tiny_shape, bf16, True, gen),
            check_attention(eval_shape, f32, True, gen),
            check_attention(small, bf16, True, gen),
            check_attention(small, f32, True, gen),
@@ -1540,6 +1975,8 @@ def main() -> None:
            for shape in (train_shape, small) for dtype in (bf16, f32)
            for with_bias in (True, False)]
     bwd.append(check_attention_bwd(eval_shape, bf16, True, gen))  # the finetune step's shape
+    bwd += [check_attention_bwd(base_shape, bf16, True, gen),
+            check_attention_bwd(tiny_shape, bf16, True, gen)]
     # Q and dO (or K and V) stream through shared memory: the backward takes
     # any S, and 64-row tiles where S % 128 != 0
     bwd += [check_attention_bwd((1, LONG, 64, 1), bf16, True, gen),
@@ -1553,12 +1990,14 @@ def main() -> None:
     flash_fwd, flash_bwd = [c[0] for c in flash], [c[1] for c in flash]
     rows, width = 2 * PRETRAIN_BATCH * 26, 65536
     ce = [check_fused_ce(rows, width, bf16, True, gen),
-          check_fused_ce(rows, width, f32, True, gen)]
+          check_fused_ce(rows, width, f32, True, gen),
+          check_fused_ce(2 * VIT_BASE_BATCH * 26, width, bf16, True, gen)]  # ViT-Base's rows
     ce += [check_fused_ce(2 * 7 * 26, k, dtype, swap, gen)   # K = 1001: the scalar path
            for k in (1000, 1001) for dtype in (bf16, f32) for swap in (True, False)]
     ce.append(check_fused_ce(7, 100, f32, False, gen))       # odd rows without swap_halves
     ce_fwd, ce_bwd = [c[0] for c in ce], [c[1] for c in ce]
     bil = [check_bilateral((PRETRAIN_BATCH, 32, 128, 3), gen),
+           check_bilateral((VIT_BASE_BATCH, 32, 128, 3), gen),          # ViT-Base's batch
            check_bilateral((PRETRAIN_BATCH, 32, 128, 3), gen, max_radius=2, rad2=[4.0]),
            check_bilateral((3, 17, 45, 3), gen),                 # edge tiles in both axes
            # rad2 that no integer radius squares: the tap set is d² <= rad2
@@ -1612,6 +2051,13 @@ def main() -> None:
     train_launches = pretrain_path(card)
     reset_kernel_counts()
     ft_launches = finetune_path(card)
+    reset_kernel_counts()
+    base_launches = vit_base_pretrain_path(card)
+    reset_kernel_counts()
+    sev2_launches = severity_2_pretrain_step(card)
+    reset_kernel_counts()
+    abinet_launches = abinet_finetune_step(card)
+    augmentation_chains(card)
     keep = tempfile.mkdtemp(prefix="ccd_chip_smoke_keep_")
     try:
         train_finetune_cli_phase(card, train_cli_phase(card, keep))
@@ -1623,9 +2069,14 @@ def main() -> None:
     for head in flash_fwd + flash_bwd:
         head["bound_ms_at_measured_copy_rate"] = roofline(
             head["bytes"], head["flops"], getattr(torch, head["dtype"]), measured_rate)[0]
-    k1_fwd = {"evaluation": eval_launches, "pretrain": train_launches["K1-fwd"],
-              "finetune": ft_launches["K1-fwd"], "calibrate": calib_launches["K1-fwd"]}
-    k1_bwd = {"pretrain": train_launches["K1-bwd"], "finetune": ft_launches["K1-bwd"]}
+    by_path = {"pretrain": train_launches, "finetune": ft_launches,
+               "pretrain_vit_base": base_launches, "pretrain_severity_2": sev2_launches,
+               "finetune_abinet": abinet_launches}
+    k1_fwd = {"evaluation": eval_launches, "calibrate": calib_launches["K1-fwd"],
+              **{path: n["K1-fwd"] for path, n in by_path.items()}}
+    k1_bwd = {path: n["K1-bwd"] for path, n in by_path.items()}
+    k2_fwd, k2_bwd, k3 = ({path: n[k] for path, n in by_path.items() if n[k]}
+                          for k in ("K2-fwd", "K2-bwd", "K3"))
     resources, bwd_resources = forward_resources(), backward_resources()
     emit({"kernels": [
         kernel_entry("K1-fwd packed_attention_forward (mha_packed_bias)",
@@ -1654,18 +2105,18 @@ def main() -> None:
                      resources=bwd_resources),
         kernel_entry("K2-fwd fused_dino_ce_forward (fused_dino_row_ce)",
                      "ccd_tpu_torch/csrc/fused_dino_ce.cu",
-                     "ccd_tpu/ops/fused_dino_ce.py:147", train_launches["K2-fwd"],
-                     ce_fwd[0], ce_fwd, launches_by_path={"pretrain": train_launches["K2-fwd"]},
+                     "ccd_tpu/ops/fused_dino_ce.py:147", sum(k2_fwd.values()),
+                     ce_fwd[0], ce_fwd, launches_by_path=k2_fwd,
                      device_ms=ce_fwd[0]["device_ms"]),
         kernel_entry("K2-bwd fused_dino_ce_backward (fused_dino_row_ce, backward)",
                      "ccd_tpu_torch/csrc/fused_dino_ce.cu",
-                     "ccd_tpu/ops/fused_dino_ce.py:215", train_launches["K2-bwd"],
-                     ce_bwd[0], ce_bwd, launches_by_path={"pretrain": train_launches["K2-bwd"]},
+                     "ccd_tpu/ops/fused_dino_ce.py:215", sum(k2_bwd.values()),
+                     ce_bwd[0], ce_bwd, launches_by_path=k2_bwd,
                      device_ms=ce_bwd[0]["device_ms"], resources=ce_backward_resources()),
         kernel_entry("K3 bilateral_filter_forward (bilateral_filter_fused)",
                      "ccd_tpu_torch/csrc/bilateral.cu",
-                     "ccd_tpu/data/aug_ops.py:995", train_launches["K3"], bil[0], bil,
-                     launches_by_path={"pretrain": train_launches["K3"]},
+                     "ccd_tpu/data/aug_ops.py:995", sum(k3.values()), bil[0], bil,
+                     launches_by_path=k3,
                      device_ms=bil[0]["device_ms"], wrapper_call_ms=bil[0]["wrapper_call_ms"],
                      resources=bilateral_resources(),
                      # max radius 5: 81 taps for each of a thread's 4 pixels

@@ -61,6 +61,11 @@ class JaxKey:
     def laplace(self, shape):
         return self._torch(jax.random.laplace(self.key, tuple(shape)))
 
+    def permutations(self, b, n):
+        # the call of ccd_tpu/data/aug_ops.py::some_of_random_order
+        return self._torch(jax.vmap(lambda k: jax.random.permutation(k, n))(
+            jax.random.split(self.key, b))).long()
+
 
 def seeded_images(seed: int, shape=(4, 32, 128, 3)) -> np.ndarray:
     """Text-like test images in [0, 1]: flat backgrounds with a few darker
@@ -90,3 +95,36 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+class RecordingWriter:
+    """Stands in for TensorBoard's ``SummaryWriter``: keeps what it is given
+    (scalars as (tag, value, step), images as (tag, shape, step))."""
+
+    def __init__(self, name):
+        self.name, self.scalars, self.images, self.closed = name, [], [], False
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), int(step)))
+
+    def add_image(self, tag, image, step):
+        self.images.append((tag, np.asarray(image).shape, int(step)))
+
+    def close(self):
+        self.closed = True
+
+
+@pytest.fixture(autouse=True)
+def recorded_writers(monkeypatch):
+    """The trainers' TensorBoard factory replaced by one that hands out
+    :class:`RecordingWriter`s (the list of those made): a CLI test pays no
+    TensorBoard import (it pulls in TensorFlow where that is installed: seconds)."""
+    from ccd_tpu_torch.utils import logging as log_utils
+    made = []
+
+    def factory(name):
+        made.append(RecordingWriter(name))
+        return made[-1]
+
+    monkeypatch.setattr(log_utils, "summary_writer", factory)
+    return made

@@ -225,9 +225,15 @@ def test_photometric_augment_matches_jax(chain_images, seed):
     assert not np.allclose(got, chain_images, atol=1e-3)  # the chain changed something
 
 
-def test_other_severities_are_refused(chain_images):
+@pytest.mark.parametrize("severity", [0, 7])
+def test_other_severities_are_refused(chain_images, severity):
+    """Severities 1-6 are ported (tests/test_torch_augment_chains.py); any
+    other raises, as in JAX."""
+    key = jax.random.PRNGKey(0)
     with pytest.raises(NotImplementedError):
-        TG.photometric_augment(JaxKey(jax.random.PRNGKey(0)), torch.from_numpy(chain_images), 4)
+        JG.photometric_augment(key, jnp.asarray(chain_images), severity)
+    with pytest.raises(NotImplementedError):
+        TG.photometric_augment(JaxKey(key), torch.from_numpy(chain_images), severity)
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -297,8 +303,3 @@ def test_supervised_augment_matches_jax(chain_images, seed):
     diff = np.abs(got - want)
     assert (diff > 1e-4).mean() <= 0.01, (diff > 1e-4).mean()
     assert not np.allclose(got, chain_images, atol=1e-3)  # the chain changed something
-
-
-def test_abinet_augment_is_refused(chain_images):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.abinet_augment(JaxKey(jax.random.PRNGKey(0)), torch.from_numpy(chain_images))

@@ -1,13 +1,17 @@
 """The finetune loop of the port around its step, on the CPU at smoke size:
 the ``train_finetune`` CLI (train, evaluate, checkpoint, keep the best,
-resume), the ``calibrate`` CLI at tiny shapes, the shipped finetune
-configuration against the JAX package's, and the evaluation runner's loader
-cache and mode handling. What holds the step itself to the JAX package is
+resume; the ABINet-style chain; the TensorBoard scalars and attention images
+of the JAX CLI, to a recording stand-in for the writer
+(tests/_torch_port.py::recorded_writers) and, in one test, to TensorBoard's
+own), the ``calibrate`` CLI at tiny shapes, every shipped configuration
+against the JAX package's, and the evaluation runner's loader cache and mode
+handling. What holds the step itself to the JAX package is
 tests/test_torch_finetune_step.py.
 """
 
 import json
 import logging
+import math
 import os
 
 import pytest
@@ -21,22 +25,37 @@ from ccd_tpu_torch.data.synthetic import write_synthetic_lmdb
 from ccd_tpu_torch.evaluation import runner
 from ccd_tpu_torch.models import CCDRecognizer
 
-from _torch_port import MICRO_DECODER, one_torch_thread  # noqa: F401 (fixture)
+from _torch_port import MICRO_DECODER, one_torch_thread, recorded_writers  # noqa: F401
+
+from ccd_tpu_torch.utils import logging as log_utils
+
+REAL_SUMMARY_WRITER = log_utils.summary_writer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "ccd_tpu_torch", "configs", "smoke_finetune.yaml")
 
 
-def test_port_finetune_config_is_the_jax_one():
-    """Key for key after the template merge, the package's own name aside
-    (the templates name each package's charset file and model class)."""
-    jax_cfg = vars(JaxConfig(os.path.join(REPO, "ccd_tpu", "configs", "ccd_finetune_ard.yaml")))
-    port_cfg = vars(Config(os.path.join(REPO, "ccd_tpu_torch", "configs",
-                                        "ccd_finetune_ard.yaml")))
+CONFIGS = sorted(f for f in os.listdir(os.path.join(REPO, "ccd_tpu", "configs"))
+                 if f.endswith(".yaml") and f != "template.yaml")
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_port_finetune_config_is_the_jax_one(name):
+    """Every configuration both packages ship, key for key after the
+    template merge, the package's own name aside (the templates name each
+    package's charset file and model class)."""
+    jax_cfg = vars(JaxConfig(os.path.join(REPO, "ccd_tpu", "configs", name)))
+    port_cfg = vars(Config(os.path.join(REPO, "ccd_tpu_torch", "configs", name)))
     unprefixed = {k: v.replace("ccd_tpu_torch", "ccd_tpu") if isinstance(v, str) else v
                   for k, v in port_cfg.items()}
     assert unprefixed == jax_cfg
-    assert port_cfg["training_steps_per_dispatch"] == 8
+    if not name.startswith("smoke"):
+        assert port_cfg["training_steps_per_dispatch"] == 8
+
+
+def test_the_port_ships_every_jax_config():
+    assert len(CONFIGS) == 7
+    assert set(CONFIGS) <= set(os.listdir(os.path.join(REPO, "ccd_tpu_torch", "configs")))
 
 
 def test_train_finetune_cli_trains_evaluates_checkpoints_and_resumes(tmp_path, monkeypatch,
@@ -59,6 +78,62 @@ def test_train_finetune_cli_trains_evaluates_checkpoints_and_resumes(tmp_path, m
     assert second["best_accuracy"] >= first["best_accuracy"]
     assert (run_dir / "log_all_evaluation.txt").read_text().count("total_accuracy:") == 2
     assert (tmp_path / "workdir" / "smoke_finetune" / "train.txt").is_file()
+
+
+def _abinet_config(tmp_path) -> str:
+    """The smoke configuration with ``dataset.use_abi`` (the ABINet-style
+    chain) and an evaluation every 2 iterations."""
+    import yaml
+    with open(SMOKE) as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset"]["use_abi"] = True
+    cfg["training"]["eval_iters"] = 2
+    path = tmp_path / "finetune_abi.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+ABINET_RUN = ["--synthetic", "16", "--batch_size", "4", "--device", "cpu", "--max_iters", "2"]
+
+
+def test_train_finetune_cli_with_abinet_writes_the_jax_clis_tags(tmp_path, monkeypatch,
+                                                                recorded_writers):
+    """Two iterations through ``abinet_augment``; at every show boundary
+    (every iteration) train_finetune.py:248-253's scalars and the two
+    attention images, (3, 32, 128) and (3, 32 * ceil(T / 5), 128 * 5) with
+    T = 25, and after the periodic evaluation at iteration 2 its accuracy."""
+    monkeypatch.chdir(tmp_path)
+    out = train_finetune.main(["-c", _abinet_config(tmp_path)] + ABINET_RUN)
+    assert out["iteration"] == 2 and 0.0 <= out["accuracy"] <= 1.0
+    [writer] = recorded_writers
+    assert writer.name == "smoke_finetune" and writer.closed
+    assert [(tag, step) for tag, _, step in writer.scalars] == [
+        ("metric/train_loss", 1), ("metric/lr", 1),
+        ("metric/train_loss", 2), ("metric/lr", 2), ("metric/eval_acc", 2)]
+    assert all(math.isfinite(v) for _, v, _ in writer.scalars)
+    assert writer.images == [(tag, shape, step) for step in (1, 2) for tag, shape in (
+        ("Mask/Input_image", (3, 32, 128)), ("Mask/vis_Maps", (3, 32 * 5, 128 * 5)))]
+
+
+def test_train_finetune_cli_tensorboard_events_read_back(tmp_path, monkeypatch):
+    """The one test with TensorBoard's own writer: the event file under
+    ./tensorboard/<name> holds the CLI's scalars and images, as TensorBoard's
+    ``EventAccumulator`` reads them."""
+    pytest.importorskip("tensorboard")
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    monkeypatch.setattr(log_utils, "summary_writer", REAL_SUMMARY_WRITER)
+    monkeypatch.chdir(tmp_path)
+    train_finetune.main(["-c", _abinet_config(tmp_path)] + ABINET_RUN)
+    events = EventAccumulator(str(tmp_path / "tensorboard" / "smoke_finetune"))
+    events.Reload()
+    tags = events.Tags()
+    assert set(tags["scalars"]) == {"metric/train_loss", "metric/lr", "metric/eval_acc"}
+    assert set(tags["images"]) == {"Mask/Input_image", "Mask/vis_Maps"}
+    assert [e.step for e in events.Scalars("metric/train_loss")] == [1, 2]
+    assert [e.step for e in events.Scalars("metric/eval_acc")] == [2]
+    maps = events.Images("Mask/vis_Maps")[-1]
+    assert (maps.height, maps.width) == (160, 640)
 
 
 def test_train_finetune_cli_run_only_test(tmp_path, monkeypatch):

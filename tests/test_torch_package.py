@@ -1,5 +1,6 @@
 """The port stands alone: it imports torch, never jax/flax, and nothing of
-the JAX package; its entry points refuse to carry on without a card."""
+the JAX package (nor TensorBoard, until a trainer makes its writer); its entry
+points refuse to carry on without a card."""
 
 import ast
 import os
@@ -40,11 +41,15 @@ def test_fresh_interpreter_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "assert len(names) >= 52, names\n"
         "for n in %r: assert 'ccd_tpu_torch.' + n in names, n\n"
-        "print('BAD', bad)\n" % (FORBIDDEN, MODULES))
+        "print('BAD', bad)\n"
+        "print('TENSORBOARD', sorted(m for m in sys.modules if 'tensorboard' in m))\n"
+        % (FORBIDDEN, MODULES))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+    # the trainers import TensorBoard when they make a writer, not when imported
+    assert "TENSORBOARD []" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

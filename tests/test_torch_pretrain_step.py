@@ -40,9 +40,11 @@ from ccd_tpu.losses import teacher_temp_schedule as jax_teacher_temp_schedule
 from ccd_tpu.models import CCDPretrainModel as JaxPretrainModel
 from ccd_tpu.training import make_pretrain_step as jax_make_pretrain_step
 from ccd_tpu.training.optim import make_optimizer
+from ccd_tpu.training.optim import weight_decay_mask as jax_weight_decay_mask
 from ccd_tpu.training.pretrain_step import PretrainState as JaxPretrainState
 from ccd_tpu_torch.checkpoints.from_jax import pretrain_state_dicts_from_jax
 from ccd_tpu_torch.losses import teacher_temp_schedule
+from ccd_tpu_torch.training.optim import weight_decay_mask
 from ccd_tpu_torch.models.pretrain import CCDPretrainModel
 from ccd_tpu_torch.training.pretrain_step import (init_pretrain_state, make_pretrain_step,
                                                   pretrain_state_payload)
@@ -253,3 +255,62 @@ def test_state_payload_names_what_a_checkpoint_needs(runs):
     assert payload["iteration"] == N_STEPS and payload["opt_state"]["count"] == N_STEPS
     assert len(payload["opt_state"]["mu"]) == len(list(out[True]["state"].student.parameters()))
     assert not any(k.startswith("segmentation") for k in payload["teacher"])
+
+
+def test_frozen_weight_norm_gain_two_steps_match_jax():
+    """``norm_last_layer=True`` (the ViT-Base configuration): the DINOHead's
+    weight-norm gain ``last_layer.weight_g`` gets no gradient and no weight
+    decay in either package, so it stays bit for bit where it started (moved
+    off 1 by the seeded perturbation) while ``weight_v`` trains; two steps
+    with the last layer unfrozen (the first at lr 0), the losses and
+    ``weight_v``'s movement on the tolerances above."""
+    images, masks, theta = _batch(1)
+    schedule = dict(SCHEDULE, freeze_last_layer=0)
+    jstudent = JaxPretrainModel(arch="vit_micro", out_dim=OUT_DIM, with_seg_head=True,
+                                norm_last_layer=True, drop_path_rate=0.0)
+    jteacher = JaxPretrainModel(arch="vit_micro", out_dim=OUT_DIM, with_seg_head=False)
+    variables = jstudent.init(jax.random.PRNGKey(0), jnp.zeros((2, 32, 128, 3)),
+                              jnp.zeros((2, 26, 32, 128)))
+    params = perturbed_numpy_tree(variables["params"], 6)
+    stats = perturbed_numpy_tree(variables["batch_stats"], 7)
+    t_params = {"backbone": params["backbone"], "head": params["head"]}
+    tx = make_optimizer("adamw", to_jnp(params), norm_last_layer=True)
+    jstate = JaxPretrainState(
+        student_params=to_jnp(params), student_stats=to_jnp(stats),
+        teacher_params=to_jnp(t_params), opt_state=tx.init(to_jnp(params)),
+        center=jnp.zeros((1, OUT_DIM)), iteration=jnp.zeros((), jnp.int32),
+        rng=jax.random.PRNGKey(5))
+    jstep = jax.jit(jax_make_pretrain_step(
+        jstudent, jteacher, tx, teacher_temps=jax_teacher_temp_schedule(0.04, 0.07, 3, 10),
+        gt_mask_epochs=30, use_fused_ce=False, **schedule))
+
+    student = CCDPretrainModel(arch="vit_micro", out_dim=OUT_DIM, with_seg_head=True,
+                               norm_last_layer=True, drop_path_rate=0.0)
+    teacher = CCDPretrainModel(arch="vit_micro", out_dim=OUT_DIM, with_seg_head=False)
+    state = init_pretrain_state(student, teacher)
+    s_sd, t_sd = pretrain_state_dicts_from_jax(params, stats, t_params)
+    student.load_state_dict(s_sd, strict=True)
+    teacher.load_state_dict(t_sd, strict=True)
+    step = make_pretrain_step(teacher_temps=teacher_temp_schedule(0.04, 0.07, 3, 10),
+                              gt_mask_epochs=30, **schedule)
+    named = dict(student.named_parameters())
+    assert not weight_decay_mask(named, True)["head.last_layer.weight_g"]
+    assert not np.asarray(jax_weight_decay_mask(params, True)["head"]["last_layer_g"])
+
+    for _ in range(2):
+        jstate, jm = jstep(jstate, jnp.asarray(images), jnp.asarray(masks), jnp.asarray(theta))
+        state, m = step(state, torch.from_numpy(images), torch.from_numpy(masks),
+                        torch.from_numpy(theta))
+        for key in ("loss", "mask_loss", "dino_loss"):
+            np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=LOSS_RTOL, err_msg=key)
+    jax_head = jax.device_get(jstate.student_params["head"])
+    g0, v0 = s_sd["head.last_layer.weight_g"].numpy(), s_sd["head.last_layer.weight_v"].numpy()
+    assert np.abs(g0 - 1.0).max() > 1e-3  # the gain starts off its initial value of 1
+    np.testing.assert_array_equal(student.head.last_layer.weight_g.detach().numpy(), g0)
+    np.testing.assert_array_equal(np.asarray(jax_head["last_layer_g"]).reshape(g0.shape), g0)
+    # weight_v trains, and its movement tracks JAX's as every tensor's does above
+    moved_want = np.asarray(jax_head["last_layer_v"]).T - v0
+    moved_got = student.head.last_layer.weight_v.detach().numpy() - v0
+    assert np.abs(moved_got).max() > 1e-5
+    assert np.linalg.norm(moved_got - moved_want) <= \
+        MOVE_RTOL["gt_masks"] * np.linalg.norm(moved_want)

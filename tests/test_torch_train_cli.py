@@ -9,7 +9,9 @@ held to that step on the views the port's ``pretrain_views`` makes from the
 same generator state, and K multi-step iterations to K fused steps: same
 process, same arithmetic, so losses and parameters must be equal (0
 tolerance). The CLI is checked end to end: finite losses, a checkpoint
-written, and a second run that resumes from it.
+written, a second run that resumes from it, a run at augmentation severity
+2, and the TensorBoard scalars the JAX CLI writes (to a recording stand-in
+for the writer: tests/_torch_port.py::recorded_writers).
 """
 
 import copy
@@ -33,10 +35,11 @@ from ccd_tpu_torch.training.pretrain_step import (init_pretrain_state, make_fuse
                                                   restore_pretrain_state)
 from ccd_tpu_torch.utils import MetricLogger
 
-from _torch_port import one_torch_thread  # noqa: F401 (fixture)
+from _torch_port import one_torch_thread, recorded_writers  # noqa: F401 (fixtures)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "ccd_tpu_torch", "configs", "smoke_pretrain.yaml")
+VIT_BASE = os.path.join(REPO, "ccd_tpu_torch", "configs", "ccd_pretrain_vit_base.yaml")
 BATCH = 4
 SCHEDULE = dict(base_lr=5e-4, min_lr=1e-6, total_iters=100, warmup_iters=1,
                 weight_decay=0.04, weight_decay_end=0.4, momentum_teacher=0.99,
@@ -228,3 +231,71 @@ def test_init_pretrain_state_refuses_an_optimizer_it_has_not_ported():
     with pytest.raises(NotImplementedError, match="sgd"):
         init_pretrain_state(student, teacher, optimizer="sgd")
     assert init_pretrain_state(student, teacher, optimizer="adamw").iteration == 0
+
+
+def test_train_cli_at_severity_2_writes_the_jax_clis_scalars(tmp_path, monkeypatch,
+                                                            recorded_writers):
+    """Two iterations with ``dataset.augmentation_severity: 2`` (the
+    SomeOf chain with crops, elastic and perspective warps); at every show
+    boundary (every iteration in the smoke config) the five scalars of
+    train.py:250-252 at the iteration, to a writer named after the run."""
+    import yaml
+
+    from ccd_tpu_torch.cli.train import main
+    monkeypatch.chdir(tmp_path)
+    with open(SMOKE) as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset"]["augmentation_severity"] = 2
+    path = tmp_path / "pretrain.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    out = main(["-c", str(path), "--synthetic", "8", "--batch_size_per_gpu", "4",
+                "--device", "cpu", "--max_iters", "2"])
+    assert out["iteration"] == 2
+    assert all(np.isfinite(out["last"][k]) for k in ("loss", "mask_loss", "dino_loss"))
+    [writer] = recorded_writers
+    assert writer.name == "smoke_pretrain" and writer.closed and not writer.images
+    tags = [f"metric/{k}" for k in ("loss", "mask_loss", "dino_loss", "lr", "wd")]
+    assert [(tag, step) for tag, _, step in writer.scalars] == \
+        [(tag, step) for step in (1, 2) for tag in tags]
+    assert all(np.isfinite(value) for _, value, _ in writer.scalars)
+    assert [v for tag, v, step in writer.scalars if step == 2 and tag == "metric/loss"] == \
+        [out["last"]["loss"]]
+
+
+class _Built(Exception):
+    """Ends a CLI run once its models are built."""
+
+
+def test_train_cli_takes_the_vit_base_config(tmp_path, monkeypatch):
+    """``ccd_pretrain_vit_base.yaml`` through the CLI up to its models:
+    ViT-Base (C = 512, 12 blocks, 8 heads of 64), bf16, ``out_dim`` 65536,
+    ``norm_last_layer: True`` (the gain ``weight_g`` out of the weight decay;
+    its freezing is held in tests/test_torch_pretrain_step.py), batch 48,
+    severity 5. Built on the meta device, so no full-width weights are made
+    here; the card runs this configuration's steps (chip_smoke.py)."""
+    from ccd_tpu_torch import builders
+    from ccd_tpu_torch.cli.train import main
+    from ccd_tpu_torch.training.optim import weight_decay_mask
+
+    real, seen = builders.build_pretrain_models, {}
+
+    def build_on_meta(config, device="cuda", generator=None):
+        with torch.device("meta"):
+            seen["models"] = real(config, device="meta", generator=generator)
+        seen["config"] = config
+        raise _Built
+
+    monkeypatch.setattr(builders, "build_pretrain_models", build_on_meta)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(_Built):
+        main(["-c", VIT_BASE, "--synthetic", "8", "--device", "cpu"])
+    config, (student, teacher) = seen["config"], seen["models"]
+    assert int(config.batch_size_per_gpu) == 48 and config.dataset_augmentation_severity == 5
+    for model in (student, teacher):
+        vit = model.backbone
+        assert (vit.embed_dim, len(vit.blocks), vit.blocks[0].attn.num_heads) == (512, 12, 8)
+        assert model.dtype == torch.bfloat16 and model.out_dim == 65536
+        assert tuple(model.head.last_layer.weight_v.shape) == (65536, 256)
+    assert student.norm_last_layer and student.segmentation is not None
+    assert not weight_decay_mask(dict(student.named_parameters()),
+                                 student.norm_last_layer)["head.last_layer.weight_g"]
