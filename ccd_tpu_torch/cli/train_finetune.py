@@ -165,6 +165,7 @@ def _train(config, args, device) -> dict:
                                                       make_multi_finetune_step,
                                                       restore_finetune_state)
     from ccd_tpu_torch.utils.logging import summary_writer
+    from ccd_tpu_torch.utils.meters import Averager, Timer
 
     # ------------------------------------------------------------ data
     batch_size = int(config.dataset_train_batch_size or 288)
@@ -271,12 +272,15 @@ def _train(config, args, device) -> dict:
             f"{(iteration - n_steps) % k_steps} extra iterations; checkpoints are labeled "
             f"with the actual iteration count")
     pending = []
+    loss_avg, timer = Averager(), Timer()
     writer = summary_writer(config.global_name)  # None without TensorBoard; before the clock
     start = time.time()
     try:
         while iteration < n_steps:
+            timer.tic()
             images, targets, ready = next(staged)
             wait_for_chunk(images, targets, ready)
+            timer.toc_data()  # the host's wait for the loader and the chunk's copy
             state, metrics = step_fn(state, images, targets)
             pending.append(metrics["loss"])  # (K,) on the device; fetched at log time
             iteration += k_steps
@@ -287,16 +291,20 @@ def _train(config, args, device) -> dict:
                 if not np.isfinite(losses).all():
                     logging.error(f"Loss is {losses[-1]}, stopping training")
                     sys.exit(1)
+                for v in losses:
+                    loss_avg.add(v)
                 lr = float(metrics["lr"][-1])
                 ips = batch_size * (iteration - start_iteration) / (time.time() - start)
-                logging.info(f"iteration:{iteration - 1}--> train loss:{losses.mean():.4f} "
-                             f"lr:{lr:.2e} ({time.time() - start:.0f}s, {ips:.1f} img/s)")
+                logging.info(f"iteration:{iteration - 1}--> train loss:{loss_avg.val():.4f} "
+                             f"lr:{lr:.2e} ({time.time() - start:.0f}s, {ips:.1f} img/s, "
+                             f"data wait {1e3 * timer.average_data_time():.1f} ms/chunk)")
                 if writer is not None:
-                    writer.add_scalar("metric/train_loss", float(losses.mean()), iteration)
+                    writer.add_scalar("metric/train_loss", loss_avg.val(), iteration)
                     writer.add_scalar("metric/lr", lr, iteration)
                     # the last batch of the chunk as loaded, before augmentation
                     _log_attention_maps(writer, model, normalize(images[-1].float() / 255.0),
                                         iteration)
+                loss_avg.reset()
 
             if iteration >= k_steps and iteration % eval_iters < k_steps:
                 logging.info("eval model")

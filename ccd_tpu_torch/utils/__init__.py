@@ -1,5 +1,6 @@
 from ccd_tpu_torch.utils.device import resolve_device
 from ccd_tpu_torch.utils.logging import Logger
-from ccd_tpu_torch.utils.meters import MetricLogger, SmoothedValue
+from ccd_tpu_torch.utils.meters import Averager, MetricLogger, SmoothedValue, Timer
 
-__all__ = ["resolve_device", "Logger", "MetricLogger", "SmoothedValue"]
+__all__ = ["resolve_device", "Logger", "MetricLogger", "SmoothedValue", "Averager",
+           "Timer"]

@@ -1,5 +1,7 @@
 """Training meters (parity: SmoothedValue/MetricLogger,
-Dino/modules/utils.py:235-411), as the train CLI uses them.
+Dino/modules/utils.py:235-411), as the train CLI uses them, and the
+finetune loop's Averager and Timer (Dino/utils/util.py:5-25,
+Dino/utils/utils.py:118-157).
 
 Cross-process synchronisation is a no-op on a single process and raises
 under an initialised ``torch.distributed`` world of more than one: multi-GPU
@@ -8,6 +10,7 @@ training is not ported yet.
 
 from __future__ import annotations
 
+import time
 from collections import defaultdict, deque
 from typing import Dict
 
@@ -81,3 +84,55 @@ class MetricLogger:
 
     def __str__(self) -> str:
         return self.delimiter.join(f"{name}: {meter}" for name, meter in self.meters.items())
+
+
+class Averager:
+    """Simple running average (Dino/utils/util.py:5-25)."""
+
+    def __init__(self):
+        self.reset()
+
+    def add(self, v: float) -> None:
+        self.n_count += 1
+        self.sum += float(v)
+
+    def reset(self) -> None:
+        self.n_count = 0
+        self.sum = 0.0
+
+    def val(self) -> float:
+        return self.sum / self.n_count if self.n_count else 0.0
+
+
+class Timer:
+    """Data/compute phase timer on the host's clock (Dino/utils/utils.py:118-157).
+    A caller that times work on the card synchronises the stream before each
+    ``toc_*``."""
+
+    def __init__(self):
+        self.data_total_time = 0.0
+        self.data_call = 0
+        self.running_total_time = 0.0
+        self.running_call = 0
+        self._t = time.time()
+
+    def tic(self) -> None:
+        self._t = time.time()
+
+    def toc_data(self) -> None:
+        now = time.time()
+        self.data_total_time += now - self._t
+        self.data_call += 1
+        self._t = now
+
+    def toc_running(self) -> None:
+        now = time.time()
+        self.running_total_time += now - self._t
+        self.running_call += 1
+        self._t = now
+
+    def average_data_time(self) -> float:
+        return self.data_total_time / (self.data_call or 1)
+
+    def average_running_time(self) -> float:
+        return self.running_total_time / (self.running_call or 1)

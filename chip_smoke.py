@@ -43,7 +43,21 @@ shipped configurations, with random weights from a seed:
   * the ``train_finetune`` CLI on the shipped configuration over synthetic
     LMDBs, its backbone handed over from the ``train`` CLI's checkpoint: 16
     iterations with evaluations, a checkpoint, and a resume to 32. Both CLIs'
-    TensorBoard event files are read back where ``tensorboard`` is installed.
+    TensorBoard event files are read back where ``tensorboard`` is installed;
+  * the learnability probe (``cli.overfit_probe``, in process): 32 rendered
+    words, 160 finetune steps, then a greedy decode of the same images, on
+    the JAX tool's ``vit_micro`` (fp32) and at full width
+    (``ccd_finetune_ard.yaml``, bf16);
+  * checkpoint interchange: the full-width probe's recognizer and the
+    ``train`` CLI's checkpoint exported in the reference's layout
+    (``checkpoints/torch_export.py``) and read back through the port's
+    loaders, bit for bit, under the JAX export's names;
+  * the released-weight harness (``cli.parity_eval``, in process) on that
+    export at batch 288 over two LMDBs named like benchmarks, against a
+    direct evaluation of the probe's model, and with a moved baseline;
+  * the glyph-mask generator (``cli.generate_masks``, in process) over the
+    ``train`` CLI's synthetic LMDB on the card and on the CPU, read back by
+    ``PretrainDataset``.
 
 It checks that each path went through the kernels (launch counts set to 0
 just before a path and read just after) and that its output agrees with a
@@ -81,11 +95,15 @@ import ccd_tpu_torch.ops.flash_attention as flash_attention_mod
 import ccd_tpu_torch.ops.fused_dino_ce as fused_dino_ce_mod
 import ccd_tpu_torch.training.finetune_step as finetune_step_mod
 import ccd_tpu_torch.training.pretrain_step as pretrain_step_mod
-from ccd_tpu_torch.builders import build_pretrain_models, build_recognizer
-from ccd_tpu_torch.cli import calibrate
+from ccd_tpu_torch.builders import (build_pretrain_models, build_recognizer,
+                                    load_pretrained_backbone, load_recognizer_params)
+from ccd_tpu_torch.checkpoints import save_pretrain_torch, save_recognizer_torch
+from ccd_tpu_torch.cli import calibrate, generate_masks, overfit_probe, parity_eval
 from ccd_tpu_torch.config import Config
 from ccd_tpu_torch.convertor import AttnConvertor
-from ccd_tpu_torch.data.dataset import SupervisedDataset, build_dataset
+from ccd_tpu_torch.data.dataset import (PretrainDataset, SupervisedDataset, build_dataset,
+                                        mask_env_path)
+from ccd_tpu_torch.data.lmdb import LmdbReader, LmdbWriter
 from ccd_tpu_torch.data.pipeline import DataLoader
 from ccd_tpu_torch.data.augment import abinet_augment, pretrain_views, supervised_augment
 from ccd_tpu_torch.data.random import TorchKey
@@ -96,6 +114,7 @@ from ccd_tpu_torch.ops import _build
 from ccd_tpu_torch.ops.bilateral import (bilateral_filter_fused, bilateral_filter_plain,
                                          kernel_attributes as bilateral_attributes)
 from ccd_tpu_torch.ops.cc_label import label_clusters
+from ccd_tpu_torch.ops.kmeans_mask import kmeans_foreground_mask
 from ccd_tpu_torch.ops.flash_attention import (backward_kernel_attributes, flash_attention,
                                                flash_attention_bwd, flash_attention_bwd_plain,
                                                flash_attention_fwd, flash_attention_plain,
@@ -149,6 +168,27 @@ FT_PHASES = ("augment", "forward", "tf_loss", "backward", "update")
 # evaluations every 8 iterations over the CLI's 288-word test LMDB
 FT_CLI_WORDS, FT_CLI_ITERS, FT_CLI_RESUMED_ITERS, FT_CLI_EVAL_ITERS = 1152, 16, 32, 8
 CALIBRATE_ITERS = 10                   # calls per calibration row (the CLI's default is 50)
+# the learnability probe at the JAX tool's size (tools/overfit_probe.py: 32
+# words, 160 steps), first on its own model (vit_micro, fp32), then at full
+# width; the JAX package's CPU run of the same probe read 32 of 32 words
+# back (loss 4.6021 -> 0.0057), a figure printed beside the port's
+PROBE_WORDS, PROBE_STEPS, PROBE_LOG_EVERY = 32, 160, 50
+PROBE_MIN_ACCURACY = 0.9
+PROBE_JAX_CPU = {"correct": 32, "words": 32, "first_loss": 4.6021, "last_loss": 0.0057}
+# the harness: a second benchmark of other words, four full batches of 288;
+# a baseline moved by this many points must fail the run at 0.2
+PARITY_OTHER_WORDS, PARITY_MOVED = 1152, 0.5
+# generate_masks: the train CLI's synthetic LMDB (cli/train.py --synthetic),
+# masks batched at 256 as the CLI's default
+MASK_BATCH = 256
+# k-means on the card against the CPU: a pixel on the midpoint of the two
+# fp32 centroids may land on either side (another summation order); at most
+# this share of the pixels, each within this relative distance of the
+# midpoint (computed in float64)
+MASK_MAX_DIFF_SHARE, MASK_TIE_RTOL = 1e-4, 1e-3
+# names in the JAX package's reference-layout exports at ViT-Small (12
+# blocks) with the 6-layer NRTR: recognizer, pretraining student and teacher
+REFERENCE_KEY_COUNTS = {"recognizer": 274, "student": 252, "teacher": 164}
 LONG = 4096                            # a long sequence: K/V (or Q/dO) stream through shared memory
 
 # |kernel - plain| on O(1) outputs. bf16: both round p and the output to bf16
@@ -1857,6 +1897,415 @@ def train_finetune_cli_phase(card: str, pretrain_checkpoint: str) -> dict:
     return result
 
 
+def _weight_bias(*prefixes) -> list:
+    return [f"{p}.{n}" for p in prefixes for n in ("weight", "bias")]
+
+
+def _bn_keys(prefix: str) -> list:
+    return _weight_bias(prefix) + [f"{prefix}.{n}" for n in
+                                   ("running_mean", "running_var", "num_batches_tracked")]
+
+
+def _vit_keys(depth: int) -> list:
+    keys = ["backbone.pos_embed", "backbone.cls_token"] + _weight_bias("backbone.patch_embed.proj")
+    for i in range(depth):
+        keys += _weight_bias(*(f"backbone.blocks.{i}.{m}" for m in
+                               ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")))
+    return keys + _weight_bias("backbone.norm", *(f"backbone.norm_seg.{i}" for i in range(3)))
+
+
+def reference_recognizer_keys(depth: int = 12, n_layers: int = 6) -> list:
+    """The names of the reference ``DINO_Finetune`` ``state_dict``, as the
+    JAX package's export writes them
+    (``ccd_tpu/checkpoints/torch_export.py::export_recognizer_state_dict``),
+    for a ViT of ``depth`` blocks and an NRTR of ``n_layers`` layers."""
+    keys = _vit_keys(depth) + _weight_bias("encoder.fc1", "encoder.fc2")
+    keys += ["decoder.trg_word_emb.weight", "decoder.position_enc.position_table"]
+    for i in range(n_layers):
+        p = f"decoder.layer_stack.{i}."
+        keys += _weight_bias(p + "norm1", p + "norm2", p + "norm3")
+        keys += [f"{p}{attn}.{lin}.weight" for attn in ("self_attn", "enc_attn")
+                 for lin in ("linear_q", "linear_k", "linear_v", "fc")]
+        keys += _weight_bias(p + "mlp.w_1", p + "mlp.w_2")
+    return keys + _weight_bias("decoder.layer_norm", "decoder.classifier")
+
+
+def reference_pretrain_keys(depth: int = 12) -> dict:
+    """The names of the reference ``ABIDINOModel`` student and teacher
+    ``state_dict``s, as the JAX package's export writes them
+    (``export_pretrain_state_dicts``): the SegHead's BatchNorm counters and
+    the never-called ``conv_mla`` filler included."""
+    head = _weight_bias("head.mlp.0", "head.mlp.2", "head.mlp.4") + \
+        ["head.last_layer.weight_g", "head.last_layer.weight_v"]
+    seg = []
+    for i in (2, 3, 4):
+        p = f"segmentation.mlahead.head{i}."
+        seg += [p + "0.weight", *_bn_keys(p + "1"), p + "3.weight", *_bn_keys(p + "4")]
+    for j in (1, 2):
+        seg += _weight_bias(f"segmentation.unpool{j}.0") + _bn_keys(f"segmentation.unpool{j}.1")
+    seg += _weight_bias("segmentation.cls")
+    for name in ("mla_p2_1x1", "mla_p3_1x1", "mla_p4_1x1", "mla_p2", "mla_p3", "mla_p4"):
+        seg += [f"segmentation.conv_mla.{name}.0.weight",
+                *_bn_keys(f"segmentation.conv_mla.{name}.1")]
+    return {"student": _vit_keys(depth) + seg + head, "teacher": _vit_keys(depth) + head}
+
+
+def overfit_probe_phase(card: str) -> dict:
+    """``cli.overfit_probe`` in process at the JAX tool's size (PROBE_WORDS
+    words, PROBE_STEPS steps): first the tool's own model (vit_micro, fp32;
+    gate: finite losses and a train word accuracy of at least
+    PROBE_MIN_ACCURACY), then the shipped finetune configuration at full
+    width (ViT-Small + 6-layer NRTR, bf16, dropout and drop path 0.1; gate:
+    finite losses, the last below the first). The attention kernels'
+    launches of each run are counted: per step one forward and one backward a
+    ViT block, and one forward a block for the decode. Returns the
+    full-width run's result (its model in evaluation mode) and the launches
+    of both runs."""
+    import io
+    runs, launches_total = {}, collections.Counter()
+    for name, argv, blocks, dtype in (("vit_micro", [], 3, torch.float32),
+                                      ("full_width", ["-c", CONFIG], 12, torch.bfloat16)):
+        reset_kernel_counts()
+        buffer = io.StringIO()
+        with contextlib.redirect_stdout(buffer):
+            result = overfit_probe.main(argv + ["--n", str(PROBE_WORDS),
+                                                "--steps", str(PROBE_STEPS)])
+        launches = kernel_counts()
+        launches_total.update(launches)
+        model, losses = result["model"], result["losses"]
+        want = dict.fromkeys(launches, 0)
+        want.update({"K1-fwd": blocks * (PROBE_STEPS + 1), "K1-bwd": blocks * PROBE_STEPS})
+        if model.dtype != dtype or len(model.backbone.blocks) != blocks or launches != want:
+            raise SystemExit(f"overfit_probe {name}: not the expected model ({model.dtype}, "
+                             f"{len(model.backbone.blocks)} blocks) or launches {launches} "
+                             f"!= {want}")
+        if len(losses) != PROBE_STEPS or not all(np.isfinite(losses)):
+            raise SystemExit(f"overfit_probe {name}: missing or non-finite losses {losses}")
+        if name == "vit_micro" and not result["accuracy"] >= PROBE_MIN_ACCURACY:
+            raise SystemExit(f"overfit_probe vit_micro: train word accuracy "
+                             f"{result['correct']}/{PROBE_WORDS} < {PROBE_MIN_ACCURACY} "
+                             f"(JAX, CPU: {PROBE_JAX_CPU['correct']}/{PROBE_JAX_CPU['words']}); "
+                             f"losses {losses[::PROBE_LOG_EVERY]}")
+        if name == "full_width" and not losses[-1] < losses[0]:
+            raise SystemExit(f"overfit_probe full width: the loss did not fall: "
+                             f"{losses[::PROBE_LOG_EVERY]} ... {losses[-1]}")
+        full = result
+        runs[name] = {
+            "model": "vit_micro + 6-layer NRTR (the JAX tool's)" if name == "vit_micro"
+            else "ccd_finetune_ard.yaml: vit_small + 6-layer NRTR",
+            "dtype": str(dtype).replace("torch.", ""),
+            "loss_every_50_steps": {str(i): losses[i] for i in
+                                    list(range(0, PROBE_STEPS, PROBE_LOG_EVERY)) + [PROBE_STEPS - 1]},
+            "train_word_accuracy": f"{result['correct']}/{PROBE_WORDS}",
+            "accuracy": result["accuracy"],
+            "ms_per_step": 1e3 * result["seconds"] / PROBE_STEPS,
+            "images_per_s": PROBE_WORDS * PROBE_STEPS / result["seconds"],
+            "kernel_launches": {k: v for k, v in launches.items() if v},
+            "first_predictions": [{"gt": w, "pred": p} for w, p in
+                                  zip(result["words"][:5], result["predictions"][:5])]}
+    emit({"phase": "overfit_probe", "gpu": card, "words": PROBE_WORDS, "steps": PROBE_STEPS,
+          "lr": 1e-3, "warmup_iters": 20, "clip_grad": 5.0, "runs": runs,
+          "jax_cpu_vit_micro": PROBE_JAX_CPU})
+    return {"result": full, "launches": dict(launches_total)}
+
+
+def interchange_phase(card: str, model, pretrain_checkpoint: str, out_dir: str) -> str:
+    """The full-width probe's recognizer exported in the reference's layout
+    (``save_recognizer_torch``, ``module.`` prefix) and the ``train`` CLI's
+    kept checkpoint exported as a reference pretraining file
+    (``save_pretrain_torch``); each read back through the port's loaders
+    (``load_recognizer_params``; the teacher's backbone through
+    ``load_pretrained_backbone``) into a freshly built recognizer. Every tensor
+    must come back bit for bit, and each file's names must be those of the
+    JAX package's export at these widths (written out in this script).
+    Returns the recognizer file's path."""
+    rec_path = os.path.join(out_dir, "probe_recognizer_reference.pth")
+    save_recognizer_torch(model, rec_path, iteration=PROBE_STEPS, module_prefix=True)
+    exported = torch.load(rec_path, map_location="cpu", weights_only=True)
+    want = ["module." + k for k in reference_recognizer_keys()]
+    live = model.state_dict()
+    fresh, _ = build_recognizer(Config(CONFIG), device="cuda",
+                                generator=torch.Generator().manual_seed(SEED + 1))
+    load_recognizer_params(rec_path, fresh)
+    back = fresh.state_dict()
+    rec_mismatch = [k for k in live if not torch.equal(back[k], live[k])
+                    or not torch.equal(exported["net"]["module." + k], live[k].cpu())]
+    if len(want) != REFERENCE_KEY_COUNTS["recognizer"] or sorted(exported["net"]) != sorted(want) \
+            or rec_mismatch or exported["iteration"] != PROBE_STEPS:
+        raise SystemExit(f"interchange: recognizer names {len(exported['net'])} (want "
+                         f"{len(want)}: {sorted(set(want) ^ set(exported['net']))[:8]}) or "
+                         f"tensors not bit for bit: {rec_mismatch[:8]}")
+
+    pre_path = os.path.join(out_dir, "pretrain_reference.pth")
+    payload = torch.load(pretrain_checkpoint, map_location="cpu", weights_only=True)
+    save_pretrain_torch(pretrain_checkpoint, None, pre_path, iteration=payload["iteration"])
+    pre = torch.load(pre_path, map_location="cpu", weights_only=True)
+    want_pre = reference_pretrain_keys()
+    pre_mismatch = [f"{branch}/{k}" for branch in ("student", "teacher")
+                    for k, v in payload[branch].items() if not torch.equal(pre[branch][k], v)]
+    handed = build_recognizer(Config(CONFIG), device="cuda",
+                              generator=torch.Generator().manual_seed(SEED + 2))[0]
+    load_pretrained_backbone(pre_path, handed)
+    backbone = handed.backbone.state_dict()
+    pre_mismatch += [f"backbone/{k}" for k, v in backbone.items()
+                     if not torch.equal(v.cpu(), payload["teacher"]["backbone." + k])]
+    for branch in ("student", "teacher"):
+        if len(want_pre[branch]) != REFERENCE_KEY_COUNTS[branch] \
+                or sorted(pre[branch]) != sorted(want_pre[branch]):
+            raise SystemExit(f"interchange: {branch} names "
+                             f"{sorted(set(want_pre[branch]) ^ set(pre[branch]))[:8]}")
+    if pre_mismatch or len(backbone) != len(_vit_keys(12)) - 1:  # all but the cls token
+        raise SystemExit(f"interchange: pretraining tensors not bit for bit: {pre_mismatch[:8]} "
+                         f"({len(backbone)} backbone tensors)")
+    emit({"phase": "interchange", "gpu": card,
+          "recognizer": {"from": "overfit_probe full width", "names": len(exported["net"]),
+                         "module_prefix": True, "bit_equal_read_back": len(live),
+                         "file_mb": os.path.getsize(rec_path) / 1e6},
+          "pretrain": {"from": os.path.basename(pretrain_checkpoint),
+                       "iteration": int(payload["iteration"]),
+                       "names": {b: len(pre[b]) for b in ("student", "teacher")},
+                       "added_by_export": {b: len(pre[b]) - len(payload[b])
+                                           for b in ("student", "teacher")},
+                       "bit_equal_payload_tensors": sum(len(payload[b])
+                                                        for b in ("student", "teacher")),
+                       "teacher_backbone_tensors_handed_over": len(backbone)},
+          "names_as_the_jax_export": REFERENCE_KEY_COUNTS})
+    return rec_path
+
+
+@contextlib.contextmanager
+def recorded_predictions(texts: list, seconds: list):
+    """Inside, the evaluation runner's predict functions keep the strings they
+    read, in order, and each call's time (host clock; a call ends in a read
+    back to the host)."""
+    make = runner.make_predict_fn
+
+    def recording_make(*args, **kwargs):
+        predict = make(*args, **kwargs)
+
+        def recording(images):
+            t0 = time.time()
+            out = predict(images)
+            seconds.append(time.time() - t0)
+            texts.extend(out)
+            return out
+        return recording
+    runner.make_predict_fn = recording_make
+    try:
+        yield
+    finally:
+        runner.make_predict_fn = make
+
+
+def write_probe_lmdb(path: str, n: int) -> list:
+    """The probe's ``n`` words and images (``overfit_probe.probe_data``) as
+    a reference-layout LMDB, PNG-encoded; returns the words."""
+    import cv2
+    words, images = overfit_probe.probe_data(n)
+    with LmdbWriter(path) as writer:
+        for i, (word, image) in enumerate(zip(words, images), start=1):
+            ok, png = cv2.imencode(".png", cv2.cvtColor(image, cv2.COLOR_RGB2BGR))
+            if not ok:
+                raise SystemExit(f"parity_eval: PNG encoding of probe image {i} failed")
+            writer.put(f"image-{i:09d}".encode(), png.tobytes())
+            writer.put(f"label-{i:09d}".encode(), word.encode())
+        writer.put(b"num-samples", str(n).encode())
+    return words
+
+
+def parity_eval_phase(card: str, probe: dict, pth: str) -> int:
+    """``cli.parity_eval.main`` in process on the probe's exported recognizer
+    at batch 288, over two LMDBs under benchmark names: ``IIIT5k_probe``
+    (the probe's words and images) and ``SVT_probe`` (PARITY_OTHER_WORDS
+    other words). The baseline is a direct ``evaluate_benchmarks`` of the
+    probe's model. Gates: exit 0, the weighted accuracy equal to the direct
+    one, the strings read equal image by image, 12 forward attention
+    launches a batch, and exit 1 with the baseline moved by PARITY_MOVED
+    points. Returns the harness run's forward launches."""
+    import io
+    model = probe["result"]["model"]
+    config = Config(CONFIG)
+    tmp = tempfile.mkdtemp(prefix="ccd_chip_smoke_parity_")
+    try:
+        evaluation = os.path.join(tmp, "evaluation")
+        roots = [os.path.join(evaluation, "IIIT5k_probe"), os.path.join(evaluation, "SVT_probe")]
+        words = write_probe_lmdb(roots[0], PROBE_WORDS)
+        if words != probe["result"]["words"]:
+            raise SystemExit("parity_eval: IIIT5k_probe does not hold the probe's words")
+        write_synthetic_lmdb(roots[1], PARITY_OTHER_WORDS, seed=1)
+        direct_texts, direct_s = [], []
+        with recorded_predictions(direct_texts, direct_s):
+            results, direct = runner.evaluate_benchmarks(
+                model, roots, batch_size=BATCH, max_seq_len=config.decoder_max_seq_len,
+                charset_type=config.dataset_charset_type or "DICT90",
+                case_sensitive=bool(config.dataset_eval_case_sensitive),
+                names=["IIIT5k", "SVT"])
+        baseline = {str(r["name"]): 100.0 * float(r["cwr"]) for r in results}
+        files = {}
+        for name, base in (("baseline", baseline),
+                           ("moved", dict(baseline, IIIT5k=baseline["IIIT5k"] + PARITY_MOVED))):
+            files[name] = os.path.join(tmp, f"{name}.json")
+            with open(files[name], "w") as f:
+                json.dump(base, f)
+        argv = ["--pth", pth, "--test_root", evaluation, "-c", CONFIG,
+                "--batch_size", str(BATCH)]
+
+        def harness(baseline_file: str, texts: list, seconds: list, out=None):
+            buffer = io.StringIO()
+            code, returned = 0, None
+            with contextlib.redirect_stdout(buffer), contextlib.redirect_stderr(buffer), \
+                    recorded_predictions(texts, seconds):
+                try:
+                    returned = parity_eval.main(argv + ["--baseline", baseline_file] +
+                                                (["--out", out] if out else []))
+                except SystemExit as e:
+                    code = e.code
+            return code, returned, buffer.getvalue()
+
+        texts, seconds = [], []
+        artifact_path = os.path.join(tmp, "parity.json")
+        reset_kernel_counts()
+        t0 = time.time()
+        code, returned, log = harness(files["baseline"], texts, seconds, artifact_path)
+        wall = time.time() - t0
+        launches = kernel_counts()
+        n_images = PROBE_WORDS + PARITY_OTHER_WORDS
+        n_batches = -(-PROBE_WORDS // BATCH) + -(-PARITY_OTHER_WORDS // BATCH)
+        want = dict.fromkeys(launches, 0)
+        want["K1-fwd"] = 12 * n_batches
+        if code != 0 or returned is None or "PARITY OK" not in log:
+            raise SystemExit(f"parity_eval: exit {code} on its own baseline:\n{log[-3000:]}")
+        rows, weighted, _ok = returned
+        if weighted != direct or texts != direct_texts or launches != want:
+            raise SystemExit(f"parity_eval: weighted {weighted!r} vs direct {direct!r}, "
+                             f"{sum(a != b for a, b in zip(texts, direct_texts))} strings "
+                             f"differ, launches {launches} (want {want})")
+        with open(artifact_path) as f:
+            artifact = json.load(f)
+        moved_code, _, moved_log = harness(files["moved"], [], [])
+        if moved_code != 1 or "PARITY FAIL" not in moved_log:
+            raise SystemExit(f"parity_eval: exit {moved_code} with the baseline moved by "
+                             f"{PARITY_MOVED}:\n{moved_log[-3000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "parity_eval", "gpu": card, "config": "ccd_finetune_ard.yaml",
+          "checkpoint": "the full-width probe's export (module. prefix)", "batch": BATCH,
+          "benchmarks": {r["benchmark"]: {"words": r["words"], "word_acc_pct": r["word_acc_pct"]}
+                         for r in rows},
+          "weighted_acc": weighted, "direct_weighted_acc": direct, "bit_identical": True,
+          "strings_equal": len(texts), "exit_code": code, "moved_baseline_exit_code": moved_code,
+          "moved_by_pct": PARITY_MOVED, "artifact_device": artifact["device"],
+          "kernel_launches": {"K1-fwd": launches["K1-fwd"]}, "batches": n_batches,
+          "images_per_s_inference": n_images / sum(seconds),
+          "images_per_s_direct_inference": n_images / sum(direct_s),
+          "harness_wall_s": wall, "images_per_s_harness_wall": n_images / wall})
+    return launches["K1-fwd"]
+
+
+def kmeans_centroids_float64(gray: np.ndarray, iters: int = 16):
+    """The k-means' Lloyd steps in float64 on (B, H, W): (B, 1) c0 and c1."""
+    x = gray.reshape(gray.shape[0], -1).astype(np.float64)
+    lo, hi = x.min(1, keepdims=True), x.max(1, keepdims=True)
+    c0, c1 = lo + 0.25 * (hi - lo), lo + 0.75 * (hi - lo)
+    for _ in range(iters):
+        a = np.abs(x - c1) < np.abs(x - c0)
+        n1 = a.sum(1, keepdims=True)
+        s1 = (x * a).sum(1, keepdims=True)
+        c0 = np.where(x.shape[1] - n1 > 0, (x.sum(1, keepdims=True) - s1)
+                      / np.maximum(x.shape[1] - n1, 1), c0)
+        c1 = np.where(n1 > 0, s1 / np.maximum(n1, 1), c1)
+    return c0, c1
+
+
+def generate_masks_phase(card: str) -> None:
+    """``cli.generate_masks.main`` in process over the ``train`` CLI's
+    synthetic LMDB (CLI_WORDS rendered words, written here by the same call
+    as ``cli/train.py --synthetic``), at ``--batch`` MASK_BATCH on the card
+    and once on the CPU. Gate: the two mask LMDBs equal byte for byte, or
+    differing only on images whose 64 x 256 k-means masks (recomputed here,
+    batched as the CLI batches them) differ on pixels at the centroids'
+    midpoint (at most MASK_MAX_DIFF_SHARE of them, each within MASK_TIE_RTOL).
+    ``PretrainDataset(mask=True)`` must read a non-empty mask for every sample.
+    Reports masks per second, the k-means' time per batch on the card, and
+    the mean IoU of the k-means masks against the rendered ground truth."""
+    import io
+
+    import cv2
+    tmp = tempfile.mkdtemp(prefix="ccd_chip_smoke_masks_")
+    try:
+        root = os.path.join(tmp, "training", "SYNTH")
+        truth_root = os.path.join(tmp, "Mask")
+        write_synthetic_lmdb(root, CLI_WORDS, seed=3, with_mask_lmdb=True,
+                             mask_path=mask_env_path(root, truth_root))
+        mask_roots = {"cuda": os.path.join(tmp, "masks_cuda"),
+                      "cpu": os.path.join(tmp, "masks_cpu")}
+        walls, items = {}, {}
+        for device, mask_root in mask_roots.items():
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                written = generate_masks.main(["--src", os.path.join(tmp, "training"),
+                                               "--mask_root", mask_root,
+                                               "--batch", str(MASK_BATCH), "--device", device])
+            walls[device] = time.time() - t0
+            out = os.path.join(mask_root, "SYNTH")
+            if written != {out: CLI_WORDS}:
+                raise SystemExit(f"generate_masks {device}: wrote {written}")
+            with LmdbReader(out) as reader:
+                items[device] = dict(reader.items())
+        differing_keys = sorted(k for k in items["cuda"] if items["cuda"][k] != items["cpu"].get(k))
+        if sorted(items["cuda"]) != sorted(items["cpu"]) or len(items["cuda"]) != CLI_WORDS + 1:
+            raise SystemExit("generate_masks: the card's and the CPU's LMDBs hold other keys")
+
+        # the k-means as the CLI batches it, on both devices
+        with LmdbReader(root) as reader:
+            grays = np.stack([cv2.resize(cv2.imdecode(np.frombuffer(
+                reader.get(f"image-{i:09d}".encode()), np.uint8), cv2.IMREAD_GRAYSCALE),
+                (256, 64)).astype(np.float32) for i in range(1, CLI_WORDS + 1)])
+        with LmdbReader(mask_env_path(root, truth_root)) as reader:
+            truth = [cv2.imdecode(np.frombuffer(reader.get(f"mask-{i:09d}".encode()), np.uint8),
+                                  cv2.IMREAD_GRAYSCALE) > 127 for i in range(1, CLI_WORDS + 1)]
+        card_masks, cpu_masks = [], []
+        for b in range(0, CLI_WORDS, MASK_BATCH):
+            batch = torch.from_numpy(grays[b:b + MASK_BATCH])
+            on_card = batch.cuda()
+            card_masks.append(kmeans_foreground_mask(on_card).cpu().numpy())
+            cpu_masks.append(kmeans_foreground_mask(batch).numpy())
+        kmeans_ms = time_ms(lambda: kmeans_foreground_mask(on_card), reps=10, warmup=2)
+        differ = np.concatenate(card_masks) != np.concatenate(cpu_masks)
+        c0, c1 = kmeans_centroids_float64(grays)
+        mid = np.broadcast_to(((c0 + c1) / 2)[:, :, None], grays.shape)
+        off_midpoint = np.abs(grays - mid)[differ] > MASK_TIE_RTOL * np.abs(mid[differ])
+        images_differing = {f"mask-{i + 1:09d}".encode() for i in np.nonzero(differ.any((1, 2)))[0]}
+        if differ.mean() > MASK_MAX_DIFF_SHARE or off_midpoint.any() \
+                or not set(differing_keys) <= images_differing:
+            raise SystemExit(f"generate_masks: card and CPU masks differ on {int(differ.sum())} "
+                             f"pixels ({int(off_midpoint.sum())} off the midpoint), "
+                             f"{len(differing_keys)} PNGs")
+
+        ious = []
+        for i, gt in enumerate(truth):
+            got = cv2.imdecode(np.frombuffer(items["cuda"][f"mask-{i + 1:09d}".encode()],
+                                             np.uint8), cv2.IMREAD_GRAYSCALE) > 127
+            ious.append((got & gt).sum() / max((got | gt).sum(), 1))
+        ds = PretrainDataset(path=root, is_training=False, mask=True,
+                             mask_path=mask_roots["cuda"])
+        empty = [i for i in range(len(ds)) if not ds[i][1].sum() > 0]
+        if ds.mask_env is None or len(ds) != CLI_WORDS or empty or len(truth) != CLI_WORDS:
+            raise SystemExit(f"generate_masks: PretrainDataset read {len(ds)} samples, "
+                             f"{len(empty)} with an empty mask")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "generate_masks", "gpu": card, "images": CLI_WORDS, "batch": MASK_BATCH,
+          "source": "cli/train.py --synthetic's LMDB (1024 words, seed 3, 48 x 160)",
+          "masks_per_s": {d: CLI_WORDS / w for d, w in walls.items()},
+          "kmeans_ms_per_batch_on_card": kmeans_ms,
+          "identical_lmdbs": not differing_keys, "differing_pngs": len(differing_keys),
+          "differing_pixels_64x256": int(differ.sum()),
+          "mean_iou_vs_rendered_truth": float(np.mean(ious)),
+          "min_iou_vs_rendered_truth": float(np.min(ious)),
+          "pretrain_dataset_nonempty_masks": CLI_WORDS})
+
+
 def calibrate_phase(card: str) -> dict:
     """``cli.calibrate`` in process at CALIBRATE_ITERS calls per row: its
     rows and the measured peaks; the launch counts are read around it."""
@@ -1940,8 +2389,15 @@ def main() -> None:
     release = next((ln.strip() for ln in nvcc.splitlines() if "release" in ln), "unknown")
     for mod in ("yaml", "PIL", "cv2"):
         __import__(mod)  # the data stack; a missing module fails here
+    from ccd_tpu_torch.data import synthetic
+    # the rendered words' face: where DejaVu is missing PIL's built-in font
+    # stands in, and the words' strokes (and so the masks' overlap with the
+    # rendered truth) are thinner
+    font = getattr(synthetic._font(), "path", None)
+    font = font if isinstance(font, str) else "PIL's built-in default font (no DejaVu)"
     emit({"phase": "environment", "gpu": card, "python": sys.version.split()[0],
-          "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": release})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": release,
+          "synthetic_words_font": font})
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products stay fp32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1961,6 +2417,9 @@ def main() -> None:
     # ViT-Base (C = 512, 8 heads) and ViT-Tiny (C = 192, 3 heads) at their
     # pretraining batches: 2 x 48 and 2 x 64 images
     base_shape, tiny_shape = (2 * VIT_BASE_BATCH, 256, 512, 8), (2 * PRETRAIN_BATCH, 256, 192, 3)
+    # the learnability probe's batch: ViT-Small in bf16 (its steps and decode,
+    # and parity_eval's IIIT5k_probe batch) and vit_micro in fp32
+    probe_shape, micro_shape = (PROBE_WORDS, 256, 384, 6), (PROBE_WORDS, 256, 64, 2)
     fwd = [check_attention(eval_shape, bf16, True, gen),
            check_attention(train_shape, bf16, True, gen),
            check_attention(base_shape, bf16, True, gen),
@@ -1969,6 +2428,8 @@ def main() -> None:
            check_attention(small, bf16, True, gen),
            check_attention(small, f32, True, gen),
            check_attention(eval_shape, bf16, False, gen),
+           check_attention(probe_shape, bf16, True, gen),
+           check_attention(micro_shape, f32, True, gen),
            # K and V stream through shared memory: the forward takes any S
            check_attention((1, LONG, 64, 1), bf16, True, gen)]
     bwd = [check_attention_bwd(shape, dtype, with_bias, gen)
@@ -1976,7 +2437,9 @@ def main() -> None:
            for with_bias in (True, False)]
     bwd.append(check_attention_bwd(eval_shape, bf16, True, gen))  # the finetune step's shape
     bwd += [check_attention_bwd(base_shape, bf16, True, gen),
-            check_attention_bwd(tiny_shape, bf16, True, gen)]
+            check_attention_bwd(tiny_shape, bf16, True, gen),
+            check_attention_bwd(probe_shape, bf16, True, gen),
+            check_attention_bwd(micro_shape, f32, True, gen)]
     # Q and dO (or K and V) stream through shared memory: the backward takes
     # any S, and 64-row tiles where S % 128 != 0
     bwd += [check_attention_bwd((1, LONG, 64, 1), bf16, True, gen),
@@ -2060,7 +2523,13 @@ def main() -> None:
     augmentation_chains(card)
     keep = tempfile.mkdtemp(prefix="ccd_chip_smoke_keep_")
     try:
-        train_finetune_cli_phase(card, train_cli_phase(card, keep))
+        kept = train_cli_phase(card, keep)
+        train_finetune_cli_phase(card, kept)
+        probe = overfit_probe_phase(card)   # counts set to 0 before each of its two runs
+        parity_launches = parity_eval_phase(card, probe,
+                                            interchange_phase(card, probe["result"]["model"],
+                                                              kept, keep))
+        generate_masks_phase(card)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
@@ -2073,8 +2542,10 @@ def main() -> None:
                "pretrain_vit_base": base_launches, "pretrain_severity_2": sev2_launches,
                "finetune_abinet": abinet_launches}
     k1_fwd = {"evaluation": eval_launches, "calibrate": calib_launches["K1-fwd"],
-              **{path: n["K1-fwd"] for path, n in by_path.items()}}
-    k1_bwd = {path: n["K1-bwd"] for path, n in by_path.items()}
+              **{path: n["K1-fwd"] for path, n in by_path.items()},
+              "overfit_probe": probe["launches"]["K1-fwd"], "parity_eval": parity_launches}
+    k1_bwd = {**{path: n["K1-bwd"] for path, n in by_path.items()},
+              "overfit_probe": probe["launches"]["K1-bwd"]}
     k2_fwd, k2_bwd, k3 = ({path: n[k] for path, n in by_path.items() if n[k]}
                           for k in ("K2-fwd", "K2-bwd", "K3"))
     resources, bwd_resources = forward_resources(), backward_resources()

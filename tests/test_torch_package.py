@@ -20,7 +20,9 @@ MODULES = ("ops.flash_attention", "ops.fused_dino_ce", "ops.image", "ops.pooling
            "ops.bilateral", "data.random", "data.aug_ops", "data.augment", "data.dataset",
            "data.pipeline", "utils.logging", "utils.meters", "checkpoints.torch_io", "cli.train",
            "training.finetune_step", "cli.train_finetune", "cli.calibrate",
-           "evaluation.runner", "models.recognizer", "models.nrtr")
+           "evaluation.runner", "models.recognizer", "models.nrtr",
+           "checkpoints.torch_export", "cli.parity_eval", "cli.overfit_probe",
+           "cli.generate_masks", "ops.kmeans_mask")
 
 
 def _sources():
@@ -39,7 +41,7 @@ def test_fresh_interpreter_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(ccd_tpu_torch.__path__, 'ccd_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
-        "assert len(names) >= 52, names\n"
+        "assert len(names) >= 57, names\n"
         "for n in %r: assert 'ccd_tpu_torch.' + n in names, n\n"
         "print('BAD', bad)\n"
         "print('TENSORBOARD', sorted(m for m in sys.modules if 'tensorboard' in m))\n"
@@ -118,6 +120,16 @@ def test_cuda_request_without_a_card_raises():
     with pytest.raises(RuntimeError):
         from ccd_tpu_torch.cli.calibrate import main as calibrate_main
         calibrate_main(["--small"])
+    with pytest.raises(RuntimeError):
+        from ccd_tpu_torch.cli.parity_eval import main as parity_main
+        parity_main(["--pth", "absent.pth", "--test_root", REPO, "-c",
+                     os.path.join(PKG, "configs", "smoke_finetune.yaml")])
+    with pytest.raises(RuntimeError):
+        from ccd_tpu_torch.cli.overfit_probe import main as probe_main
+        probe_main(["--steps", "1"])
+    with pytest.raises(RuntimeError):
+        from ccd_tpu_torch.cli.generate_masks import main as masks_main
+        masks_main(["--src", REPO, "--mask_root", os.path.join(REPO, "absent")])
 
 
 def test_chip_smoke_fails_without_a_card():
