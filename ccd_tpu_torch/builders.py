@@ -60,6 +60,8 @@ def build_pretrain_models(config: Config, device: Union[str, torch.device] = "cu
                           generator: Optional[torch.Generator] = None
                           ) -> Tuple[CCDPretrainModel, CCDPretrainModel]:
     """Student (with SegHead + drop path) and teacher (plain), train.py:62-91.
+    ``config.remat`` recomputes the student's blocks in the backward; the
+    teacher, which takes no gradient, never does (ccd_tpu/builders.py:53-63).
 
     Both are initialised on the CPU under ``generator`` (seed 0 when None),
     student first, then moved to ``device``; ``init_pretrain_state`` makes the
@@ -72,7 +74,8 @@ def build_pretrain_models(config: Config, device: Union[str, torch.device] = "cu
         arch=arch, patch_size=config.patch_size,
         drop_path_rate=config.drop_path_rate, out_dim=config.out_dim,
         use_bn_in_head=bool(config.use_bn_in_head),
-        norm_last_layer=bool(config.norm_last_layer), with_seg_head=True, dtype=dtype)
+        norm_last_layer=bool(config.norm_last_layer), with_seg_head=True,
+        remat=bool(config.remat), dtype=dtype)
     teacher = CCDPretrainModel(
         arch=arch, patch_size=config.patch_size, drop_path_rate=0.0,
         out_dim=config.out_dim, use_bn_in_head=bool(config.use_bn_in_head),

@@ -9,7 +9,8 @@ transposed here: Flax ``(in, out)`` kernels become ``(out, in)``, the NHWC
 patch-conv kernel ``(kh, kw, in, out)`` becomes ``(out, in, kh, kw)``, module
 names ``blocks_i`` / ``layer_i`` / ``norm_seg_i`` become ``blocks.i`` /
 ``layer_stack.i`` / ``norm_seg.i``. The pretraining model's heads follow the
-reference's ``Sequential`` numbering: DINOHead ``mlp_j`` -> ``mlp.{0,2,4}``,
+reference's ``Sequential`` numbering: DINOHead ``mlp_j`` -> ``mlp.{0,2,4}``
+(with ``use_bn``: ``mlp_j`` / ``bn_j`` -> ``mlp.{0,3,6}`` / ``mlp.{1,4}``),
 ``last_layer_g``/``last_layer_v`` -> ``last_layer.weight_g``/``weight_v``;
 SegHead ``head{i}.conv1/bn1/conv2/bn2`` -> ``mlahead.head{i}.{0,1,3,4}``,
 ``unpool{j}_conv``/``unpool{j}_bn`` -> ``unpool{j}.{0,1}``, with the Flax
@@ -18,7 +19,7 @@ SegHead ``head{i}.conv1/bn1/conv2/bn2`` -> ``mlahead.head{i}.{0,1,3,4}``,
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,11 +86,30 @@ def _nrtr(p: Mapping[str, Any], prefix: str, sd: Dict[str, np.ndarray]) -> None:
     _put(sd, f"{prefix}classifier", p["classifier"])
 
 
-def _dino_head(p: Mapping[str, Any], prefix: str, sd: Dict[str, np.ndarray]) -> None:
-    """``DINOHead`` tree -> reference names (Sequential mlp + weight_norm)."""
+def _bn(sd: Dict[str, np.ndarray], prefix: str, params: Mapping[str, Any],
+        stats: Mapping[str, Any]) -> None:
+    """A Flax BatchNorm's params and batch_stats (mean, var) under torch naming."""
+    _put(sd, prefix, params)
+    sd[f"{prefix}.running_mean"] = _np(stats["mean"])
+    sd[f"{prefix}.running_var"] = _np(stats["var"])
+
+
+def _dino_head(p: Mapping[str, Any], prefix: str, sd: Dict[str, np.ndarray],
+               stats: Optional[Mapping[str, Any]] = None) -> None:
+    """``DINOHead`` tree (and, with ``use_bn``, its ``batch_stats``) ->
+    reference names (Sequential mlp + weight_norm): ``mlp_j`` -> ``mlp.{2j}``
+    without BatchNorm; ``mlp_j`` -> ``mlp.{3j}`` and ``bn_j`` -> ``mlp.{3j+1}``
+    with it."""
     nlayers = sum(1 for k in p if k.startswith("mlp_"))
+    use_bn = any(k.startswith("bn_") for k in p)
+    if use_bn and stats is None:
+        raise ValueError(f"{prefix or 'DINOHead'}: the head has BatchNorms (bn_*) but no "
+                         "batch_stats were given")
+    stride = 3 if use_bn else 2
     for j in range(nlayers):
-        _put(sd, f"{prefix}mlp.{2 * j}", p[f"mlp_{j}"])
+        _put(sd, f"{prefix}mlp.{stride * j}", p[f"mlp_{j}"])
+        if use_bn and j < nlayers - 1:
+            _bn(sd, f"{prefix}mlp.{stride * j + 1}", p[f"bn_{j}"], stats[f"bn_{j}"])
     sd[f"{prefix}last_layer.weight_g"] = _np(p["last_layer_g"]).reshape(-1, 1)
     sd[f"{prefix}last_layer.weight_v"] = _np(p["last_layer_v"]).T
 
@@ -99,21 +119,15 @@ def _seg_head(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
     """``SegHead`` params + batch_stats -> reference names."""
     conv = lambda k: k.transpose(3, 2, 0, 1)             # (kh,kw,in,out) -> (out,in,kh,kw)
     conv_transpose = lambda k: k.transpose(2, 3, 0, 1)   # (kh,kw,in,out) -> (in,out,kh,kw)
-
-    def bn(tp: str, params: Mapping[str, Any], st: Mapping[str, Any]) -> None:
-        _put(sd, tp, params)
-        sd[f"{tp}.running_mean"] = _np(st["mean"])
-        sd[f"{tp}.running_var"] = _np(st["var"])
-
     for i in (2, 3, 4):
         hp, h, hs = f"{prefix}mlahead.head{i}.", p[f"head{i}"], stats[f"head{i}"]
         _put(sd, f"{hp}0", h["conv1"], conv)
-        bn(f"{hp}1", h["bn1"], hs["bn1"])
+        _bn(sd, f"{hp}1", h["bn1"], hs["bn1"])
         _put(sd, f"{hp}3", h["conv2"], conv)
-        bn(f"{hp}4", h["bn2"], hs["bn2"])
+        _bn(sd, f"{hp}4", h["bn2"], hs["bn2"])
     for j in (1, 2):
         _put(sd, f"{prefix}unpool{j}.0", p[f"unpool{j}_conv"], conv_transpose)
-        bn(f"{prefix}unpool{j}.1", p[f"unpool{j}_bn"], stats[f"unpool{j}_bn"])
+        _bn(sd, f"{prefix}unpool{j}.1", p[f"unpool{j}_bn"], stats[f"unpool{j}_bn"])
     _put(sd, f"{prefix}cls", p["cls"], conv)
 
 
@@ -148,10 +162,13 @@ def recognizer_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch
     return _to_torch(sd)
 
 
-def dino_head_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``DINOHead`` tree -> the port's DINOHead ``state_dict``."""
+def dino_head_state_dict_from_jax(params: Mapping[str, Any],
+                                  batch_stats: Optional[Mapping[str, Any]] = None
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``DINOHead`` tree (and its ``batch_stats`` with
+    ``use_bn``) -> the port's DINOHead ``state_dict``."""
     sd: Dict[str, np.ndarray] = {}
-    _dino_head(params, "", sd)
+    _dino_head(params, "", sd, batch_stats)
     return _to_torch(sd)
 
 

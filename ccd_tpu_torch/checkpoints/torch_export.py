@@ -112,6 +112,18 @@ def _conv_mla_filler(sd: Dict[str, torch.Tensor], prefix: str = "segmentation.")
         sd.setdefault(f"{p}.1.num_batches_tracked", torch.zeros((), dtype=torch.int64))
 
 
+def _refuse_head_batchnorm(sd: Mapping[str, torch.Tensor]) -> None:
+    """A DINOHead built with ``use_bn_in_head`` is not exported: the JAX
+    package's exporter writes only its ``mlp_j`` Dense layers and would drop
+    the BatchNorms without a word, so there is no export to hold this one
+    to, and the reference's ``BatchNorm1d`` keeps an unbiased running
+    variance where the port (as Flax) keeps the biased one."""
+    bn = sorted(k for k in sd if k.startswith("head.mlp.") and k.endswith(".running_mean"))
+    if bn:
+        raise ValueError(f"the DINO head has BatchNorm layers ({', '.join(bn)}): a "
+                         "use_bn_in_head head cannot be exported to the reference layout")
+
+
 def recognizer_reference_state_dict(model_or_sd: StateSource, module_prefix: bool = False
                                     ) -> Dict[str, torch.Tensor]:
     """A ``CCDRecognizer`` (module, ``state_dict``, finetune payload or its
@@ -132,18 +144,22 @@ def pretrain_reference_state_dicts(student: StateSource, teacher: Optional[State
     reference ``ABIDINOModel`` ``state_dict``s ``(student, teacher)``.
 
     ``student`` may also be a whole pretraining payload (or its file), which
-    holds both; ``teacher`` is then left out."""
+    holds both; ``teacher`` is then left out. A DINOHead with BatchNorm
+    (``use_bn_in_head``) raises ``ValueError``."""
     student = _load(student)
     if teacher is None:
         if not (isinstance(student, Mapping) and {"student", "teacher"} <= set(student)):
             raise ValueError("pretrain_reference_state_dicts: no teacher given and the "
                              "student is not a pretraining payload")
         teacher = student
-    student_sd = _with_reference_extras(_state_dict(student, "student"))
+    student_sd = _state_dict(student, "student")
+    teacher_sd = _state_dict(_load(teacher), "teacher")
+    _refuse_head_batchnorm(student_sd)
+    _refuse_head_batchnorm(teacher_sd)
+    student_sd = _with_reference_extras(student_sd)
     if any(k.startswith("segmentation.") for k in student_sd):
         _conv_mla_filler(student_sd)
-    teacher_sd = _with_reference_extras(_state_dict(_load(teacher), "teacher"))
-    return student_sd, teacher_sd
+    return student_sd, _with_reference_extras(teacher_sd)
 
 
 def save_recognizer_torch(model_or_payload: StateSource, path: str, iteration: int = 0,

@@ -119,6 +119,7 @@ def _train(config, args, device) -> dict:
                         num_workers=int(config.dataset_num_workers or 8))
     config.iter_num = len(loader)
     logging.info(f"each epoch iteration: {config.iter_num}")
+    logging.info(f"LMDB reader: {train_ds.reader}")
 
     # ------------------------------------------------------------ models
     seed = int(config.seed or 0)

@@ -22,7 +22,7 @@ import cv2
 import numpy as np
 
 from ccd_tpu_torch.convertor import AttnConvertor
-from ccd_tpu_torch.data.lmdb import LmdbReader
+from ccd_tpu_torch.native import open_reader
 
 
 def mask_env_path(data_path: str, mask_root: str) -> Optional[str]:
@@ -50,12 +50,15 @@ class LmdbImageDataset:
         self.multiscales = multiscales
         self._rng = random.Random(seed)
 
-        self.env = LmdbReader(path)
+        # the native C++ reader where g++ builds it, else the Python one;
+        # ``reader`` says which (ccd_tpu/data/dataset.py:55-62)
+        self.env = open_reader(path)
+        self.reader = self.env.kind
         self.mask_env = None
         if mask and mask_path:
             mpath = mask_env_path(path, mask_path)
             try:
-                self.mask_env = LmdbReader(mpath)
+                self.mask_env = open_reader(mpath)
             except Exception:
                 print(f"{path}: no mask lmdb at {mpath}")
 

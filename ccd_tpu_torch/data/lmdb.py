@@ -55,6 +55,8 @@ def _data_path(path: str) -> str:
 class LmdbReader:
     """Read-only LMDB environment over mmap."""
 
+    kind = "python"
+
     def __init__(self, path: str):
         self.path = path
         self._file = open(_data_path(path), "rb")

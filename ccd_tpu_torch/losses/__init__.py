@@ -1,4 +1,4 @@
 from ccd_tpu_torch.losses.losses import (
     seg_loss, teacher_temp_schedule, dino_char_loss, dino_char_loss_fused,
-    dino_center_update, tf_loss,
+    dino_center_update, sinkhorn_knopp_teacher, tf_loss,
 )

@@ -115,6 +115,27 @@ def dino_center_update(center: torch.Tensor, teacher_logits: torch.Tensor,
     return center * momentum + (total / count) * (1.0 - momentum)
 
 
+@torch.no_grad()
+def sinkhorn_knopp_teacher(teacher_output: torch.Tensor, teacher_temp: float,
+                           n_iterations: int = 3) -> torch.Tensor:
+    """Sinkhorn-Knopp teacher assignment (Dino_loss.py:157-184,
+    ``ccd_tpu/losses/losses.py::sinkhorn_knopp_teacher``): the reference's
+    alternative to softmax centering, present but unused in its step and in
+    the JAX package's. Single device, so the reference's ``all_reduce`` calls
+    are plain sums. fp32.
+
+    teacher_output: (N, K) logits -> (N, K) assignment (rows sum to 1)."""
+    q = torch.exp(teacher_output.float() / teacher_temp).t()  # (K, N)
+    k, n_total = q.shape
+    q = q / q.sum()
+    for _ in range(n_iterations):
+        q = q / q.sum(dim=1, keepdim=True)
+        q = q / k
+        q = q / q.sum(dim=0, keepdim=True)
+        q = q / n_total
+    return (q * n_total).t()
+
+
 def tf_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int) -> torch.Tensor:
     """Teacher-forcing CE (``ccd_tpu/losses/losses.py::tf_loss``): drop the
     last output and the first target, mean over the non-PAD targets.

@@ -4,9 +4,9 @@ Counterpart of ``ccd_tpu/models/heads.py``; parameter names are the
 reference's, so its checkpoints load by name.
 
   * ``DINOHead`` — ``Dino/modules/vision_transformer.py:294-328``: 3-layer MLP
-    (hidden 2048 -> bottleneck 256) -> L2 normalize -> weight-normed linear to
-    ``out_dim`` (65536), with the weight-norm gain ``g`` frozen when
-    ``norm_last_layer``.
+    (hidden 2048 -> bottleneck 256, BatchNorm after the hidden layers with
+    ``use_bn``) -> L2 normalize -> weight-normed linear to ``out_dim``
+    (65536), with the weight-norm gain ``g`` frozen when ``norm_last_layer``.
   * ``SegHead`` — ``Dino/modules/segmentor.py:37-95``: three per-level conv
     branches over the tapped ViT maps, concat to 192ch, two ConvTranspose 4x4
     stride-2 upsamplings (8x32 -> 32x128), 3x3 conv to 2-class text/background
@@ -41,28 +41,51 @@ class _WeightNormed(nn.Module):
         self.weight_v = nn.Parameter(torch.zeros(out_features, in_features))
 
 
+class _FeatureBatchNorm(BatchNorm):
+    """Flax's ``nn.BatchNorm`` over the last axis of ``(..., C)`` features:
+    statistics over every leading axis (the DINOHead's ``bn_{i}``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
 class DINOHead(nn.Module):
+    """With ``use_bn`` a BatchNorm (Flax's ``momentum=0.9, epsilon=1e-5``,
+    i.e. torch's ``momentum=0.1``; running variance fed the biased batch
+    variance, see ``layers.BatchNorm``) follows the first and every hidden
+    Dense, as in the reference's Sequential: ``mlp.{0,1,3,4,6}`` with
+    BatchNorm, ``mlp.{0,2,4}`` without. Training mode normalises with the
+    batch statistics and updates the running ones; evaluation mode uses the
+    running ones."""
+
     def __init__(self, in_dim: int, out_dim: int, use_bn: bool = False,
                  norm_last_layer: bool = True, nlayers: int = 3, hidden_dim: int = 2048,
                  bottleneck_dim: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_bn:
-            raise NotImplementedError("use_bn_in_head is not ported; no shipped config sets it")
         nlayers = max(nlayers, 1)
         dims = [in_dim] + [hidden_dim] * (nlayers - 1) + [bottleneck_dim]
         layers = []
-        for i in range(nlayers):  # Dense at the even indices, as the reference's Sequential
+        for i in range(nlayers):  # Dense, [BatchNorm,] GELU, as the reference's Sequential
             layers.append(Dense(dims[i], dims[i + 1], dtype=dtype))
             if i < nlayers - 1:
+                if use_bn:
+                    layers.append(_FeatureBatchNorm(dims[i + 1], dtype=dtype))
                 layers.append(_Gelu())
         self.mlp = nn.Sequential(*layers)
         self.last_layer = _WeightNormed(bottleneck_dim, out_dim)
+        self.use_bn = use_bn
         self.norm_last_layer = norm_last_layer
         self.dtype = dtype
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         init_dense_layers(self.mlp, generator)
+        for m in self.mlp:
+            if isinstance(m, BatchNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
         trunc_normal_(self.last_layer.weight_v, 0.02, generator)
         nn.init.ones_(self.last_layer.weight_g)
 

@@ -8,7 +8,8 @@ theta-warping between them. ``forward`` runs the full student path.
 
 Training behaviour (drop path, BatchNorm batch statistics) follows the
 module's mode: the step keeps the student in ``train()`` and the teacher in
-``eval()``.
+``eval()``. ``remat`` recomputes each ViT block in the backward
+(``models/vit.py::remat_block``); ``build_pretrain_models`` sets it on the student only.
 
 Character slots are kept PADDED to (B, 26) with a validity mask instead of
 the reference's ragged boolean indexing (``dino_vision.py:83-87``); the DINO
@@ -45,12 +46,13 @@ class CCDPretrainModel(nn.Module):
                  drop_path_rate: float = 0.0, out_dim: int = 65536,
                  use_bn_in_head: bool = False, norm_last_layer: bool = True,
                  with_seg_head: bool = True,  # student has a SegHead; teacher does not
-                 num_slots: int = 26, dtype: torch.dtype = torch.float32):
+                 num_slots: int = 26, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch_size, self.out_dim, self.num_slots = patch_size, out_dim, num_slots
         self.norm_last_layer, self.dtype = norm_last_layer, dtype
         self.backbone = VIT_ARCHS[arch](patch_size=patch_size, drop_path_rate=drop_path_rate,
-                                        dtype=dtype)
+                                        remat=remat, dtype=dtype)
         embed_dim = self.backbone.embed_dim
         self.segmentation = SegHead(embed_dim, mla_channels=128, mlahead_channels=64,
                                     num_classes=2, dtype=dtype) if with_seg_head else None

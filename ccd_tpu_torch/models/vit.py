@@ -5,8 +5,10 @@ adapted for text: rectangular patch grid (patch 4 -> 8x32 = 256 tokens), NO
 CLS token, bicubic pos-embed resampling (the reference stores the table on a
 16x16 grid and always resamples it to the 8x32 text grid with
 ``scale_factor=((gh+0.1)/16, (gw+0.1)/16)`` — reproduced exactly for
-checkpoint parity), stochastic depth, and LayerNormed intermediate feature
-taps at blocks ``out_indices`` reshaped to the 2-D grid for the seg head.
+checkpoint parity), stochastic depth, LayerNormed intermediate feature
+taps at blocks ``out_indices`` reshaped to the 2-D grid for the seg head,
+optional recomputation of each block in the backward (``remat``), and the
+last block's attention probabilities (``get_last_selfattention``).
 
 Counterpart of ``ccd_tpu/models/vit.py``: NHWC images at the public
 functions, fp32 params with a configurable compute dtype, exact (erf) GELU
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ccd_tpu_torch.models.layers import (Dense, Dropout, LayerNorm, init_dense_layers, keep_mask,
                                          trunc_normal_)
@@ -65,7 +68,15 @@ class Attention(nn.Module):
     """Self-attention through the packed kernel: the qkv projection is left
     un-biased and the kernel adds the bias as it loads q, k and v, so the
     (B, N, 3C) projection is read once and the (B, H, N, N) probabilities
-    never reach device memory."""
+    never reach device memory.
+
+    ``need_weights=True`` returns ``(out, probabilities (B, H, N, N))``: the
+    JAX package's own non-Pallas branch (ccd_tpu/models/vit.py:124-132),
+    softmax in fp32 and then cast to the compute type. The probabilities
+    must reach memory there, so this branch is plain torch, as it is plain
+    XLA in the JAX package; it is no fallback from the kernel, which the
+    main path (``need_weights=False``) always takes.
+    """
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -85,14 +96,29 @@ class Attention(nn.Module):
         qkv = F.linear(x.to(self.qkv.dtype), self.qkv.cast_param("weight"))
         return qkv, self.qkv.cast_param("bias")
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                need_weights: bool = False):
         qkv, bias = self.qkv_unbiased(x)
+        if need_weights:
+            out, attn = self._with_weights(qkv, bias)
+            return self.proj_drop(self.proj(out), generator), attn
         if bias is None:
             out = mha_packed(qkv, self.scale, self.num_heads)  # (B, N, C)
         else:
             out = mha_packed_bias(qkv, bias, self.scale, self.num_heads)
         return self.proj_drop(self.proj(out), generator)
+
+    def _with_weights(self, qkv: torch.Tensor, bias: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(out (B, N, C), probabilities (B, H, N, N)) in the compute type."""
+        if bias is not None:
+            qkv = qkv + bias
+        b, n, c3 = qkv.shape
+        q, k, v = qkv.reshape(b, n, 3, self.num_heads, c3 // (3 * self.num_heads)).unbind(2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * self.scale
+        attn = torch.softmax(logits.float(), dim=-1).to(qkv.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, c3 // 3)
+        return out, attn
 
 
 class Block(nn.Module):
@@ -107,10 +133,48 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim, ln_eps, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, dtype=dtype)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x), generator), generator)
-        return x + self.drop_path(self.mlp(self.norm2(x), generator), generator)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                return_attention: bool = False):
+        """``return_attention``: also return the attention's probabilities
+        (``Attention(need_weights=True)``), as ``(x, attn)``."""
+        if return_attention:
+            y, attn = self.attn(self.norm1(x), generator, need_weights=True)
+        else:
+            y = self.attn(self.norm1(x), generator)
+        x = x + self.drop_path(y, generator)
+        x = x + self.drop_path(self.mlp(self.norm2(x), generator), generator)
+        return (x, attn) if return_attention else x
+
+
+def remat_block(block: nn.Module, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, generator)`` whose activations are recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant) instead of kept:
+    Flax's ``nn.remat(Block)``. The attention goes through its kernel in both
+    passes, and the recompute's forward saves its log-sum-exp for the
+    backward as the first pass does.
+
+    Dropout and drop path draw from ``generator``, which ``checkpoint``'s
+    ``preserve_rng_state`` does not cover (it restores torch's global
+    generators only). So both passes draw from a fresh generator set to the
+    state ``generator`` had before the block, and ``generator`` is then moved
+    to where the first pass left it: the same masks in both passes, and the
+    same draws, in the same order, as without remat."""
+    if generator is None:
+        return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+    before = generator.get_state()
+    first_pass = []
+
+    def run(tokens):
+        replay = torch.Generator(device=generator.device)
+        replay.set_state(before)
+        out = block(tokens, replay)
+        first_pass.append(replay)
+        return out
+
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(first_pass[0].get_state())
+    return out
 
 
 class PatchEmbed(nn.Module):
@@ -147,8 +211,9 @@ class VisionTransformer(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = False, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  out_indices: Sequence[int] = (2, 4, 6), ln_eps: float = 1e-6,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat = remat  # recompute each block in the backward (remat_block)
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.out_indices = tuple(out_indices)
@@ -221,12 +286,27 @@ class VisionTransformer(nn.Module):
         gh, gw = h // self.patch_size, w // self.patch_size
         tokens = self.prepare_tokens(x, generator)
         taps = []
+        remat = self.remat and torch.is_grad_enabled()
         for index, blk in enumerate(self.blocks):
-            tokens = blk(tokens, generator)
+            tokens = remat_block(blk, tokens, generator) if remat else blk(tokens, generator)
             if index + 1 in self.out_indices:
                 tap = self.norm_seg[len(taps)](tokens)
                 taps.append(tap.reshape(b, gh, gw, self.embed_dim))
         return self.norm(tokens), taps
+
+    def get_last_selfattention(self, x: torch.Tensor) -> torch.Tensor:
+        """The last block's attention probabilities (B, H, N, N) for NHWC
+        images, without dropout or drop path whatever the module's mode (the
+        JAX package's ``deterministic=True``)."""
+        was_training = self.training
+        self.train(False)
+        try:
+            tokens = self.prepare_tokens(x)
+            for blk in self.blocks[:-1]:
+                tokens = blk(tokens)
+            return self.blocks[-1](tokens, return_attention=True)[1]
+        finally:
+            self.train(was_training)
 
 
 # reference variants (vision_transformer.py:273-291) — note the non-standard

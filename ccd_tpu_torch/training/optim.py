@@ -9,24 +9,27 @@ EMA teacher update (``train.py:263-272``), and the finetune path's global-norm
 clipping (``torch.nn.utils.clip_grad_norm_``).
 
 Parameters travel as ``{name: tensor}`` dictionaries in the order of
-``module.named_parameters()``. The AdamW here is written out as tensor
-functions that follow ``optax.adamw`` under ``inject_hyperparams``: the
-learning rate and the weight decay are new at every step, every parameter's
-moments and the shared count advance at every step whatever its gradient, and
-the caller may zero a parameter's whole update afterwards. (``torch.optim.AdamW``
-skips a parameter whose ``grad`` is None, moments and count included, which
-gives other numbers from the second step after the last layer is unfrozen.)
+``module.named_parameters()``. The three optimizers of ``make_optimizer``
+(train.py:132-137: ``adamw``, ``sgd``, ``lars``) are written out as tensor
+functions that follow optax 0.2.6 under ``inject_hyperparams``: the learning
+rate and the weight decay are new at every step, every parameter's state
+advances at every step whatever its gradient, and the caller may zero a
+parameter's whole update afterwards. (``torch.optim.AdamW`` skips a parameter
+whose ``grad`` is None, moments and count included, which gives other numbers
+from the second step after the last layer is unfrozen.)
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 
 Params = Dict[str, torch.Tensor]
+MOMENTUM = 0.9                  # sgd's and lars's trace decay (make_optimizer)
+LARS_TRUST_COEFFICIENT = 1e-3   # optax.lars's default, which make_optimizer keeps
 
 
 def weight_decay_mask(params: Params, norm_last_layer: bool = True) -> Dict[str, bool]:
@@ -49,6 +52,7 @@ def weight_decay_mask(params: Params, norm_last_layer: bool = True) -> Dict[str,
 @dataclass
 class AdamWState:
     """First and second moments, in the parameters' order, and the step count."""
+    name = "adamw"
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
     count: int = 0
@@ -84,6 +88,85 @@ def adamw_updates(grads: List[torch.Tensor], state: AdamWState, params: List[tor
                             alpha=weight_decay)
     torch._foreach_mul_(updates, -lr)
     return updates
+
+
+@dataclass
+class MomentumState:
+    """The momentum buffers (optax's ``trace``) of ``sgd`` or ``lars``, in
+    the parameters' order."""
+    name: str
+    trace: List[torch.Tensor]
+
+
+OptState = Union[AdamWState, MomentumState]
+
+
+def optimizer_init(name: str, params: Params) -> OptState:
+    """Zero state of the named optimizer; an unknown name raises
+    ``ValueError``, as ``make_optimizer`` does."""
+    if name == "adamw":
+        return adamw_init(params)
+    if name in ("sgd", "lars"):
+        return MomentumState(name, [torch.zeros_like(p) for p in params.values()])
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def _with_decay(grads: List[torch.Tensor], params: List[torch.Tensor], decay: List[bool],
+                weight_decay: float) -> List[torch.Tensor]:
+    """``optax.add_decayed_weights(wd, mask)``: ``g + wd * p`` on the
+    ``decay`` parameters, ``g`` on the others (a new list)."""
+    out = list(grads)
+    decayed = [i for i, d in enumerate(decay) if d]
+    if decayed:
+        summed = torch._foreach_add([grads[i] for i in decayed],
+                                    [params[i] for i in decayed], alpha=weight_decay)
+        for i, g in zip(decayed, summed):
+            out[i] = g
+    return out
+
+
+def momentum_updates(grads: List[torch.Tensor], state: MomentumState,
+                     params: List[torch.Tensor], decay: List[bool], lr: float,
+                     weight_decay: float) -> List[torch.Tensor]:
+    """One step of ``make_optimizer("sgd")`` or ``("lars")``: advances
+    ``state.trace`` in place and returns the updates. The two chains take the
+    momentum on different sides of the learning rate:
+
+      * sgd = ``add_decayed_weights`` -> ``trace(0.9)`` -> ``scale(-lr)``:
+        ``m = (g + wd p) + 0.9 m``, update ``-lr m``;
+      * lars = ``add_decayed_weights`` -> trust ratio on the ``decay``
+        parameters -> ``scale(-lr)`` -> ``trace(0.9)``:
+        ``m = -lr trust(g + wd p) + 0.9 m``, update ``m``, where
+        ``trust(u) = u * 0.001 * |p| / |u|``, or ``u`` where either norm is 0.
+
+    Nothing is read back to the host."""
+    lars = state.name == "lars"
+    updates = _with_decay(grads, params, decay, weight_decay)
+    idx = [i for i, d in enumerate(decay) if d] if lars else []
+    if idx:
+        p_norm = torch.stack(torch._foreach_norm([params[i] for i in idx])).float()
+        u_norm = torch.stack(torch._foreach_norm([updates[i] for i in idx])).float()
+        ratio = LARS_TRUST_COEFFICIENT * p_norm / u_norm
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
+        scaled = torch._foreach_mul([updates[i] for i in idx], list(ratio.unbind(0)))
+        for i, u in zip(idx, scaled):
+            updates[i] = u
+    if lars:
+        updates = torch._foreach_mul(updates, -lr)
+    torch._foreach_mul_(state.trace, MOMENTUM)
+    torch._foreach_add_(state.trace, updates)
+    # copies: the caller zeroes the frozen last layer's updates in place
+    return [t.clone() for t in state.trace] if lars else torch._foreach_mul(state.trace, -lr)
+
+
+def optimizer_updates(grads: List[torch.Tensor], state: OptState, params: List[torch.Tensor],
+                      decay: List[bool], lr: float, weight_decay: float
+                      ) -> List[torch.Tensor]:
+    """One step of whichever optimizer ``state`` belongs to (see
+    :func:`adamw_updates`, :func:`momentum_updates`)."""
+    if isinstance(state, AdamWState):
+        return adamw_updates(grads, state, params, decay, lr, weight_decay)
+    return momentum_updates(grads, state, params, decay, lr, weight_decay)
 
 
 def clip_gradients_per_param(grads: List[torch.Tensor], clip: Optional[float]

@@ -5,11 +5,12 @@ reference hot loop (``train.py:183-298`` + ``ABIDINOModel.forward``) as ONE
 function per iteration: student forward (ViT + SegHead), device-side glyph
 clustering (no host round-trip of the labels, unlike
 ``dino_vision.py:59-70``), theta-warping, char pooling + DINO head for student
-and teacher, both losses, backward, per-param clipping, AdamW with scheduled
-lr/wd, the EMA teacher update, and the DINO-center EMA.
+and teacher, both losses, backward, per-param clipping, the optimizer
+(AdamW, sgd or lars) with scheduled lr/wd, the EMA teacher update, and the
+DINO-center EMA.
 
 PyTorch runs it eagerly and in place: the state owns the two modules, the
-optimizer moments and the center, and ``step`` updates them where they are.
+optimizer state and the center, and ``step`` updates them where they are.
 Schedules are computed on the host from the Python iteration count, so the
 step itself reads nothing back from the device (``label_clusters`` reads one
 scalar per flood round). ``make_pretrain_step`` takes the three views and
@@ -37,8 +38,8 @@ from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.warp import affine_grid, grid_sample_binary_packed
 from ccd_tpu_torch.schedules import cosine_iter_schedule
 from ccd_tpu_torch.training.optim import (
-    AdamWState, adamw_init, adamw_updates, cancel_last_layer_grads,
-    clip_gradients_per_param, ema_update, weight_decay_mask,
+    AdamWState, MomentumState, OptState, cancel_last_layer_grads, clip_gradients_per_param,
+    ema_update, optimizer_init, optimizer_updates, weight_decay_mask,
 )
 
 _EMA_BRANCHES = ("backbone.", "head.")  # what the teacher tracks (train.py:268-272)
@@ -48,7 +49,7 @@ _EMA_BRANCHES = ("backbone.", "head.")  # what the teacher tracks (train.py:268-
 class PretrainState:
     student: CCDPretrainModel        # parameters and BatchNorm running statistics
     teacher: CCDPretrainModel        # backbone + head, evaluation mode, no gradients
-    opt_state: AdamWState
+    opt_state: OptState              # AdamW moments, or the sgd/lars momentum
     center: torch.Tensor             # (1, out_dim) fp32
     iteration: int
     generator: torch.Generator       # draws the student's drop-path masks
@@ -59,19 +60,28 @@ def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
                         seed: int = 0, optimizer: str = "adamw") -> PretrainState:
     """Build the initial state around two built models: the teacher starts as
     a copy of the student's backbone+head (train.py:109-110), the optimizer
-    moments and the center at zero. The drop-path generator and the
+    state and the center at zero. The drop-path generator and the
     augmentation generator live on the models' device and start from
     ``seed`` and ``seed + 1``.
 
     ``optimizer`` is the configuration's name (``config.optimizer``; empty
-    means AdamW, as train.py defaults it). Only AdamW, the shipped configs'
-    optimizer, is ported: any other name (the JAX package's ``sgd`` and
-    ``lars`` among them) raises ``NotImplementedError`` rather than training
-    with AdamW instead."""
-    if (optimizer or "adamw") != "adamw":
+    means AdamW, as train.py defaults it): ``adamw``, ``sgd`` or ``lars``
+    (``training/optim.py``); another name raises ``ValueError``.
+
+    A student built with ``use_bn_in_head`` is refused: the JAX package's
+    step cannot train it either. Its ``pool_project`` is applied without
+    ``mutable=["batch_stats"]`` (ccd_tpu/training/pretrain_step.py:231-236),
+    so the head's BatchNorm in training mode raises Flax's
+    ``ModifyScopeVariableError`` ("Cannot update variable "mean" in
+    "/head/bn_0" because collection "batch_stats" is immutable"). The module
+    itself (``DINOHead(use_bn=True)``) is ported."""
+    if student.head.use_bn:
         raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported: the port trains with AdamW only "
-            f"(sgd and lars are ROADMAP queue 1 (5))")
+            "use_bn_in_head: the reference JAX step cannot train a DINOHead with BatchNorm "
+            "(its pool_project runs without mutable=['batch_stats'] and Flax raises "
+            "ModifyScopeVariableError: Cannot update variable \"mean\" in \"/head/bn_0\" "
+            "because collection \"batch_stats\" is immutable), so there is no step to port")
+    opt_state = optimizer_init(optimizer or "adamw", dict(student.named_parameters()))
     teacher.backbone.load_state_dict(student.backbone.state_dict())
     teacher.head.load_state_dict(student.head.state_dict())
     student.train()
@@ -79,7 +89,7 @@ def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
     device = next(student.parameters()).device
     return PretrainState(
         student=student, teacher=teacher,
-        opt_state=adamw_init(dict(student.named_parameters())),
+        opt_state=opt_state,
         center=torch.zeros((1, student.out_dim), dtype=torch.float32, device=device),
         iteration=0, generator=torch.Generator(device=device).manual_seed(seed),
         aug_generator=torch.Generator(device=device).manual_seed(seed + 1))
@@ -88,27 +98,40 @@ def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
 def pretrain_state_payload(state: PretrainState) -> dict:
     """Checkpoint payload mirroring the reference's
     {student, teacher, optimizer, epoch/iteration, dino_loss-center}
-    (train.py:197-207). The generators are intentionally excluded and
-    re-seeded on resume, as the JAX package re-derives its key."""
+    (train.py:197-207); the optimizer as AdamW's ``{mu, nu, count}`` or
+    ``{optimizer: 'sgd'|'lars', trace}``. The generators are intentionally
+    excluded and re-seeded on resume, as the JAX package re-derives its key."""
+    opt = state.opt_state
+    opt_payload = ({"mu": opt.mu, "nu": opt.nu, "count": opt.count}
+                   if isinstance(opt, AdamWState) else {"optimizer": opt.name, "trace": opt.trace})
     return {"student": state.student.state_dict(),
             "teacher": state.teacher.state_dict(),
-            "opt_state": {"mu": state.opt_state.mu, "nu": state.opt_state.nu,
-                          "count": state.opt_state.count},
+            "opt_state": opt_payload,
             "center": state.center, "iteration": state.iteration}
 
 
 def restore_pretrain_state(state: PretrainState, payload: dict) -> PretrainState:
     """Put a :func:`pretrain_state_payload` back into ``state``, in place:
-    both modules, the optimizer moments and count, the centre and the
-    iteration (tensors are copied onto the state's devices)."""
+    both modules, the optimizer state (AdamW's moments and count, or the
+    sgd/lars momentum), the centre and the iteration (tensors are copied onto
+    the state's devices). A checkpoint of another optimizer than the state's
+    raises ``ValueError``."""
+    opt = payload["opt_state"]
+    saved_name = opt.get("optimizer", "adamw")
+    if saved_name != state.opt_state.name:
+        raise ValueError(f"the checkpoint holds {saved_name} state; this run trains "
+                         f"with {state.opt_state.name}")
     state.student.load_state_dict(payload["student"], strict=True)
     state.teacher.load_state_dict(payload["teacher"], strict=True)
-    opt = payload["opt_state"]
+    if isinstance(state.opt_state, MomentumState):
+        mine, saved = state.opt_state.trace, opt["trace"]
+    else:
+        mine, saved = state.opt_state.mu + state.opt_state.nu, opt["mu"] + opt["nu"]
+        state.opt_state.count = int(opt["count"])
     with torch.no_grad():
-        for mine, saved in zip(state.opt_state.mu + state.opt_state.nu, opt["mu"] + opt["nu"]):
-            mine.copy_(saved)
+        for m, s in zip(mine, saved):
+            m.copy_(s)
         state.center.copy_(payload["center"])
-    state.opt_state.count = int(opt["count"])
     state.iteration = int(payload["iteration"])
     return state
 
@@ -224,11 +247,14 @@ def make_pretrain_step(
             grads = clip_gradients_per_param(grads, clip_grad)
             grads = cancel_last_layer_grads(names, grads, freeze)
             decay = weight_decay_mask(named, student.norm_last_layer)
-            updates = adamw_updates(grads, state.opt_state, params,
-                                    [decay[n] for n in names], lr, wd)
+            updates = optimizer_updates(grads, state.opt_state, params,
+                                        [decay[n] for n in names], lr, wd)
             # cancel_gradients_last_layer sets p.grad=None, which makes torch
             # AdamW skip the param entirely — weight decay included — so the
-            # whole UPDATE is zeroed while frozen, not just the gradient.
+            # whole UPDATE is zeroed while frozen, not just the gradient. As
+            # in the JAX step, the optimizer has run on the zeroed gradient
+            # first: sgd's and lars's momentum of the frozen last layer keeps
+            # gathering its weight-decay term, and moves it once unfrozen.
             updates = cancel_last_layer_grads(names, updates, freeze)
             torch._foreach_add_(params, updates)
 

@@ -57,7 +57,19 @@ shipped configurations, with random weights from a seed:
     direct evaluation of the probe's model, and with a moved baseline;
   * the glyph-mask generator (``cli.generate_masks``, in process) over the
     ``train`` CLI's synthetic LMDB on the card and on the CPU, read back by
-    ``PretrainDataset``.
+    ``PretrainDataset``;
+  * the ViT-Small pretraining step with ``optimizer: sgd`` and ``lars``
+    (each held against the plain versions), and with ``remat: True`` against
+    the same step without it (same loss, gradients and draws; 36 K1-fwd a
+    step; the peak with and without);
+  * ``get_last_selfattention`` of the evaluation model at batch 288, against
+    the last block's attention written out here;
+  * the C++ LMDB reader (``ccd_tpu_torch/native/``, built by ``g++`` at
+    first use) against the Python one over the ``train`` CLI's 1024 words,
+    byte for byte; the ``train`` CLI reads through it;
+  * the convergence demo (``cli.convergence_demo``) at ``vit_tiny``,
+    ``out_dim`` 8192, ``--easy --no_aug``, a few hundred iterations a phase:
+    falling pretrain losses and the teacher backbone handed over by name.
 
 It checks that each path went through the kernels (launch counts set to 0
 just before a path and read just after) and that its output agrees with a
@@ -98,6 +110,7 @@ import ccd_tpu_torch.training.pretrain_step as pretrain_step_mod
 from ccd_tpu_torch.builders import (build_pretrain_models, build_recognizer,
                                     load_pretrained_backbone, load_recognizer_params)
 from ccd_tpu_torch.checkpoints import save_pretrain_torch, save_recognizer_torch
+from ccd_tpu_torch.checkpoints.torch_io import CheckpointManager
 from ccd_tpu_torch.cli import calibrate, generate_masks, overfit_probe, parity_eval
 from ccd_tpu_torch.config import Config
 from ccd_tpu_torch.convertor import AttnConvertor
@@ -127,6 +140,7 @@ from ccd_tpu_torch.ops.fused_dino_ce import (backward_kernel_attributes as ce_ba
                                              fused_dino_row_ce, fused_dino_row_ce_plain)
 from ccd_tpu_torch.training.finetune_step import (FinetuneState, init_finetune_state,
                                                   make_fused_finetune_step)
+from ccd_tpu_torch.training.optim import MomentumState
 from ccd_tpu_torch.training.pretrain_step import (PretrainState, init_pretrain_state,
                                                   make_fused_pretrain_step)
 
@@ -156,6 +170,15 @@ VIT_BASE_STEPS = 4                     # the compared step and three timed ones
 CHAIN_SEVERITIES = (1, 2, 3, 4, 6)     # pretrain_views at these, beside severity 5
 LAUNCHES_PER_STEP = {"K1-fwd": 24, "K1-bwd": 12, "K1b-fwd": 0, "K1b-bwd": 0, "K2-fwd": 1,
                      "K2-bwd": 1, "K3": 2}
+# remat: each of the student's 12 blocks runs its forward again in the backward
+LAUNCHES_PER_STEP_REMAT = dict(LAUNCHES_PER_STEP, **{"K1-fwd": 36})
+OPT_TIMED_STEPS = 3                    # sgd and lars: timed steps after the compared one
+REMAT_TIMED_STEPS = 3                  # timed steps with and without remat after the first
+# the convergence demo on the card, cut to a few hundred iterations a phase
+# (the demo logs its pretrain loss every 100 iterations)
+CONV_SHORT = {"pretrain_samples": 4096, "pretrain_iters": 400, "labeled": 1024,
+              "eval_samples": 256, "finetune_iters": 200, "eval_iters": 100,
+              "lr_finetune": 1e-3}
 CLI_ITERS, CLI_RESUMED_ITERS, CLI_WORDS = 16, 48, 1024  # 1024 words: 16 iterations an epoch
 STEP_PHASES = ("augment", "student_encode", "segment", "label_clusters", "warp", "teacher_encode",
                "pool_head", "seg_loss", "dino_ce", "backward", "update")
@@ -229,6 +252,18 @@ TOL_STATS_REL = 1e-4
 # decoder layers backwards in bf16.
 TOL_STEP_LOSS_REL = 1e-2
 TOL_STEP_GRAD_REL = 0.15
+# The pretraining step with remat against the same step without it: both
+# sides launch the same kernels on the same state, inputs and drop-path
+# draws, and differ only where an op of the step is not deterministic on the
+# card, by a bf16 rounding here and there. Read on the student's blocks (the
+# ones remat recomputes; ViT-Small, H100): losses within 2.1e-6, the blocks'
+# first moments within 7.0e-3 in L2. A recompute that draws other drop-path
+# masks than the first pass (the generator not replayed) reads 0.176 there;
+# in the whole model's L2 the heads' moments hide it (4.9e-3 against 7e-4).
+# The limit sits between the two readings (PERF.md section 6, the remat gate).
+TOL_REMAT_LOSS_REL = 1e-4
+TOL_REMAT_GRAD_REL = 4e-2
+REMAT_BLOCKS = "backbone.blocks."
 # End to end, kernel run against plain-attention run, bf16, random weights:
 # per-step probabilities (each <= 1, mostly ~1/92) compared up to the first
 # step where the two runs' greedy tokens part (after it their inputs differ).
@@ -237,6 +272,15 @@ TOL_PROBS = 2e-2
 # common and bf16 rounding flips some; a flip changes every later step of its
 # row. A run through a wrong kernel agrees on about 1/92 of the positions.
 MIN_TOKEN_AGREEMENT = 0.5
+# get_last_selfattention (bf16 probabilities, typically ~1/256) against the
+# last block's attention written out in fp32 from the same weights, the
+# earlier blocks through the plain versions: bf16 rounding of each
+# probability and of the tokens fed in, a few 1e-5 (5.9e-5 measured). A
+# wrong scale or head split moves near-uniform rows by far more.
+TOL_LAST_ATTN = 1e-3
+# A row of 256 bf16 probabilities, each rounded by at most 2^-8 of itself,
+# sums to 1 within 2^-8 plus fp32 noise.
+TOL_ROW_SUM_BF16 = 4e-3
 # Bilateral filter, kernel against plain version, fp32 [0,1] images. The
 # kernel folds 255^2, log2(e) and gs d^2 into the exponent's constants, lets
 # the compiler contract into FMAs and takes ex2.approx (2 ulp): each weight
@@ -1092,7 +1136,8 @@ def pretrain_twin(state: PretrainState) -> PretrainState:
     the same first step through the plain versions."""
     twin = PretrainState(
         student=copy.deepcopy(state.student), teacher=copy.deepcopy(state.teacher),
-        opt_state=copy.deepcopy(state.opt_state), center=state.center.clone(), iteration=0,
+        opt_state=copy.deepcopy(state.opt_state), center=state.center.clone(),
+        iteration=state.iteration,
         generator=torch.Generator(device="cuda"), aug_generator=torch.Generator(device="cuda"))
     twin.generator.set_state(state.generator.get_state())
     twin.aug_generator.set_state(state.aug_generator.get_state())
@@ -1115,13 +1160,20 @@ def run_pretrain_step(step, st, raw, masks, what: str):
     return metrics, made, a.elapsed_time(b)
 
 
+def optimizer_moments(state: PretrainState) -> list:
+    """What the step's gradients go into: AdamW's first moments, or the
+    sgd/lars momentum."""
+    opt = state.opt_state
+    return opt.trace if isinstance(opt, MomentumState) else opt.mu
+
+
 def against_plain_step(what: str, step, state, twin, raw, masks, first: dict,
                        left_out=()) -> dict:
-    """The first step again from the same state (``twin``) through the plain
-    versions: no kernel launched, losses, first moments and centre held to
-    the kernels' step. The parameters named in ``left_out`` are reported
-    (first moments' norms on both sides) but not held (see
-    EMPTY_SLOT_BIASES)."""
+    """The step again from the same state (``twin``) through the plain
+    versions: no kernel launched, losses, first moments (sgd/lars: the
+    momentum) and centre held to the kernels' step. The parameters named in
+    ``left_out`` are reported (first moments' norms on both sides) but not
+    held (see EMPTY_SLOT_BIASES)."""
     counts = kernel_counts()
     with plain_versions_in_place_of_kernels():
         plain, made, _ = run_pretrain_step(step, twin, raw, masks, what)
@@ -1130,12 +1182,12 @@ def against_plain_step(what: str, step, state, twin, raw, masks, first: dict,
     loss_rel = {k: abs(first[k] - plain[k]) / abs(plain[k])
                 for k in ("loss", "mask_loss", "dino_loss")}
     names = [n for n, _ in state.student.named_parameters()]
-    pairs = [(n, a, b) for n, a, b in zip(names, state.opt_state.mu, twin.opt_state.mu)
-             if n not in left_out]
+    moments, twin_moments = optimizer_moments(state), optimizer_moments(twin)
+    pairs = [(n, a, b) for n, a, b in zip(names, moments, twin_moments) if n not in left_out]
     by_param = sorted(((float((a - b).norm() / b.norm()), n) for n, a, b in pairs
                        if float(b.norm()) > 0), reverse=True)
     not_held = {n: {"kernels": float(a.norm()), "plain": float(b.norm())}
-                for n, a, b in zip(names, state.opt_state.mu, twin.opt_state.mu) if n in left_out}
+                for n, a, b in zip(names, moments, twin_moments) if n in left_out}
     mu, mu_plain = (torch.cat([a.flatten() for _, a, _ in pairs]),
                     torch.cat([b.flatten() for _, _, b in pairs]))
     grad_rel = float((mu - mu_plain).norm() / mu_plain.norm())
@@ -1715,6 +1767,295 @@ def abinet_finetune_step(card: str) -> dict:
     return launches
 
 
+def vit_small_pretrain_state(optimizer: str = "adamw", remat: bool = False):
+    """The ViT-Small pretraining configuration's models and state from SEED,
+    with ``optimizer`` and ``remat`` set as the configuration would set them."""
+    config = Config(PRETRAIN_CONFIG)
+    config.optimizer, config.remat = optimizer, remat
+    student, teacher = build_pretrain_models(config, device="cuda",
+                                             generator=torch.Generator().manual_seed(SEED))
+    if student.backbone.remat != remat or teacher.backbone.remat:
+        raise SystemExit("remat: build_pretrain_models did not set it on the student alone")
+    return config, init_pretrain_state(student, teacher, seed=SEED,
+                                       optimizer=str(config.optimizer))
+
+
+def optimizers_phase(card: str) -> dict:
+    """The ViT-Small fused pretraining step (batch 64, ``out_dim`` 65536,
+    bf16, severity 5) with ``optimizer: sgd`` and with ``lars``: per
+    optimizer a first step (the learning rate is 0 at iteration 0, so the
+    lars momentum stays 0), then the second step held against the same step
+    through the plain versions (the momentum is what is compared), then
+    OPT_TIMED_STEPS timed steps: finite losses, the kernels' launches, ms,
+    the card's busy share and the peak. Returns the kernels' launches."""
+    raw, masks = pretrain_inputs(PRETRAIN_BATCH, seed=654)
+    launches, report = collections.Counter(), {}
+    for name in ("sgd", "lars"):
+        config, state = vit_small_pretrain_state(name)
+        if not isinstance(state.opt_state, MomentumState) or state.opt_state.name != name:
+            raise SystemExit(f"optimizers: the state does not train with {name}")
+        step = make_fused_pretrain_step(gt_mask_epochs=30,
+                                        **pretrain_schedule(config, PRETRAIN_BATCH))
+        what = f"pretrain step, optimizer {name}"
+        reset_kernel_counts()
+        history = [run_pretrain_step(step, state, raw, masks, what)[0]]
+        twin = pretrain_twin(state)
+        second, made, _ = run_pretrain_step(step, state, raw, masks, what)
+        history.append(second)
+        compared = against_plain_step(what, step, state, twin, raw, masks, second)
+        del twin
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(OPT_TIMED_STEPS):
+            metrics, made_timed, ms = run_pretrain_step(step, state, raw, masks, what)
+            history.append(metrics)
+            step_ms.append(ms)
+            if made_timed != LAUNCHES_PER_STEP:
+                raise SystemExit(f"{what}: step launched {made_timed}, expected "
+                                 f"{LAUNCHES_PER_STEP}")
+        peak = torch.cuda.max_memory_allocated()
+        n_steps = 2 + OPT_TIMED_STEPS
+        mine = kernel_counts()
+        if made != LAUNCHES_PER_STEP or mine != {k: v * n_steps
+                                                 for k, v in LAUNCHES_PER_STEP.items()}:
+            raise SystemExit(f"{what}: {mine} launches over {n_steps} steps")
+        prof_wall, busy, _, _ = device_busy(lambda: step(state, raw, masks))
+        momentum = float(torch.stack([t.float().norm() for t in state.opt_state.trace]).norm())
+        if not momentum > 0:
+            raise SystemExit(f"{what}: the momentum did not move")
+        launches.update(mine)
+        report[name] = {"steps": n_steps, "kernel_launches": mine, "step_ms": step_ms,
+                        "step_ms_median": statistics.median(step_ms),
+                        "peak_device_memory_bytes": peak, "profiled_step_wall_ms": prof_wall,
+                        "profiled_device_busy_ms": busy,
+                        "profiled_device_busy_share": None if busy is None else busy / prof_wall,
+                        "momentum_l2": momentum, "losses": history, **compared}
+    emit({"phase": "optimizers", "gpu": card, "config": "ccd_pretrain_vit_small.yaml",
+          "batch": PRETRAIN_BATCH, "launches_per_step": LAUNCHES_PER_STEP, **report})
+    return dict(launches)
+
+
+def remat_phase(card: str) -> dict:
+    """The ViT-Small fused pretraining step with ``remat: True`` against the
+    same step without it, from the same state and draws (drop path 0.1):
+    losses, and the student blocks' AdamW first moments (0.1 x the clipped
+    gradients), within TOL_REMAT_*, the generators in the same state afterwards, K1-fwd
+    LAUNCHES_PER_STEP_REMAT a step (each student block's forward runs again
+    in the backward, through the kernel), and the peak device memory and
+    time (and busy time, under the profiler) of a step with and without
+    remat. Returns the remat steps' launches (the profiled step's left out)."""
+    raw, masks = pretrain_inputs(PRETRAIN_BATCH, seed=765)
+    runs = {}
+    for remat in (False, True):
+        config, state = vit_small_pretrain_state(remat=remat)
+        step = make_fused_pretrain_step(gt_mask_epochs=30,
+                                        **pretrain_schedule(config, PRETRAIN_BATCH))
+        want = LAUNCHES_PER_STEP_REMAT if remat else LAUNCHES_PER_STEP
+        what = f"pretrain step, remat {remat}"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        first, made, _ = run_pretrain_step(step, state, raw, masks, what)
+        peak = torch.cuda.max_memory_allocated() - base
+        moments = {n: m.detach().clone()
+                   for (n, _), m in zip(state.student.named_parameters(), state.opt_state.mu)}
+        gens = (state.generator.get_state(), state.aug_generator.get_state())
+        timed = [run_pretrain_step(step, state, raw, masks, what) for _ in range(REMAT_TIMED_STEPS)]
+        launches = kernel_counts()
+        prof_wall, busy, _, _ = device_busy(lambda: step(state, raw, masks))
+        if made != want or any(m != want for _, m, _ in timed):
+            raise SystemExit(f"{what}: launched {[made] + [m for _, m, _ in timed]}, expected "
+                             f"{want} a step")
+        runs[remat] = {"first": first, "moments": moments, "generators": gens,
+                       "peak_step_bytes": peak, "launches": launches,
+                       "profiled": {"step_wall_ms": prof_wall, "device_busy_ms": busy},
+                       "step_ms": [ms for _, _, ms in timed],
+                       "losses": [first] + [m for m, _, _ in timed]}
+        del state, step
+    plain, remat = runs[False], runs[True]
+    loss_rel = {k: abs(remat["first"][k] - plain["first"][k]) / abs(plain["first"][k])
+                for k in ("loss", "mask_loss", "dino_loss")}
+
+    def rel_l2(keep):
+        names = [n for n in plain["moments"] if keep(n)]
+        mu, mu_plain = (torch.cat([remat["moments"][n].flatten() for n in names]),
+                        torch.cat([plain["moments"][n].flatten() for n in names]))
+        return float((mu - mu_plain).norm() / mu_plain.norm()), float((mu - mu_plain).abs().max())
+
+    # the blocks that remat recomputes, on their own: in the whole model's
+    # norm the heads' moments dwarf theirs
+    grad_rel, grad_max_abs = rel_l2(lambda n: n.startswith(REMAT_BLOCKS))
+    grad_rel_all, _ = rel_l2(lambda n: True)
+    same_draws = all(torch.equal(a, b) for a, b in zip(remat["generators"], plain["generators"]))
+    emit({"phase": "remat", "gpu": card, "config": "ccd_pretrain_vit_small.yaml, remat True",
+          "batch": PRETRAIN_BATCH, "drop_path_rate": 0.1,
+          "launches_per_step": LAUNCHES_PER_STEP_REMAT,
+          "kernel_launches": remat["launches"],
+          "first_step_loss_rel_diff": loss_rel, "tol_loss_rel": TOL_REMAT_LOSS_REL,
+          "first_step_blocks_grad_rel_l2_diff": grad_rel, "tol_grad_rel": TOL_REMAT_GRAD_REL,
+          "first_step_blocks_grad_max_abs_diff": grad_max_abs,
+          "first_step_grad_rel_l2_diff": grad_rel_all,
+          "generators_equal_after_step": same_draws,
+          "peak_step_bytes": {"remat": remat["peak_step_bytes"],
+                              "no_remat": plain["peak_step_bytes"]},
+          "step_ms_median": {"remat": statistics.median(remat["step_ms"]),
+                             "no_remat": statistics.median(plain["step_ms"])},
+          "step_ms": {"remat": remat["step_ms"], "no_remat": plain["step_ms"]},
+          "profiled_step": {"remat": remat["profiled"], "no_remat": plain["profiled"]},
+          "losses": {"remat": remat["losses"], "no_remat": plain["losses"]}})
+    if not max(loss_rel.values()) <= TOL_REMAT_LOSS_REL or not grad_rel <= TOL_REMAT_GRAD_REL:
+        raise SystemExit(f"remat: the step differs from the step without remat: losses "
+                         f"{loss_rel}, the blocks' gradients {grad_rel} in L2")
+    if not same_draws:
+        raise SystemExit("remat: the generators end in another state than without remat")
+    if not remat["peak_step_bytes"] < plain["peak_step_bytes"]:
+        raise SystemExit(f"remat: the step's peak {remat['peak_step_bytes']} is not below "
+                         f"{plain['peak_step_bytes']} without remat")
+    return remat["launches"]
+
+
+def native_reader_phase(card: str) -> None:
+    """The train CLI's synthetic LMDB (CLI_WORDS words with masks, seed 3, as
+    ``--synthetic`` writes it) read key by key through the C++ reader,
+    built from ``ccd_tpu_torch/native/`` at first use, and the Python one:
+    every value byte for byte, a missing key None in both, and each reader's
+    rate over all keys."""
+    from ccd_tpu_torch.native import NativeLmdbReader, library_path, open_reader
+    tmp = tempfile.mkdtemp(prefix="ccd_chip_smoke_lmdb_")
+    try:
+        root, mask_root = os.path.join(tmp, "training", "SYNTH"), os.path.join(tmp, "Mask")
+        write_synthetic_lmdb(root, CLI_WORDS, seed=3, with_mask_lmdb=True,
+                             mask_path=mask_env_path(root, mask_root))
+        report = {}
+        for path in (root, mask_env_path(root, mask_root)):
+            native, python = open_reader(path), LmdbReader(path)
+            if not isinstance(native, NativeLmdbReader):
+                raise SystemExit(f"native reader: open_reader gave {type(native).__name__}")
+            items = list(python.items())
+            keys = [k for k, _ in items]
+            t0 = time.perf_counter()
+            got = [native.get(k) for k in keys]
+            native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for k in keys:
+                python.get(k)
+            python_s = time.perf_counter() - t0
+            if got != [v for _, v in items] or native.get(b"no-such-key") is not None \
+                    or python.get(b"no-such-key") is not None or len(native) != len(python):
+                raise SystemExit(f"native reader: {path} differs from LmdbReader")
+            report[os.path.basename(path)] = {
+                "keys": len(keys), "bytes": sum(len(v) for _, v in items),
+                "native_gets_per_s": len(keys) / native_s,
+                "python_gets_per_s": len(keys) / python_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "native_reader", "gpu": card, "words": CLI_WORDS,
+          "library": os.path.relpath(library_path(), os.path.dirname(PKG_DIR)),
+          "byte_equal": True, "readers": report})
+
+
+def last_selfattention_phase(card: str) -> int:
+    """``get_last_selfattention`` of the evaluation model's ViT-Small at the
+    evaluation batch (288, bf16): (B, 6, 256, 256) probabilities whose rows
+    sum to 1 within TOL_ROW_SUM_BF16, equal to the last block's attention
+    written out here (the other blocks through the plain versions) within
+    TOL_LAST_ATTN; the first 11
+    blocks launch K1-fwd. Returns its launches."""
+    config = Config(CONFIG)
+    model, _ = build_recognizer(config, device="cuda",
+                                generator=torch.Generator().manual_seed(SEED))
+    vit = model.backbone
+    images, _ = pretrain_inputs(BATCH, seed=876)
+    x = normalise(images)
+    reset_kernel_counts()
+    with torch.no_grad():
+        attn = vit.get_last_selfattention(x)
+    launches = kernel_counts()
+    with torch.no_grad(), plain_versions_in_place_of_kernels():
+        tokens = vit.prepare_tokens(x)
+        for blk in vit.blocks[:-1]:
+            tokens = blk(tokens)
+        last = vit.blocks[-1].attn
+        qkv, bias = last.qkv_unbiased(vit.blocks[-1].norm1(tokens))
+        qkv = (qkv + bias).reshape(BATCH, 256, 3, last.num_heads, -1)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qkv[:, :, 0].float(), qkv[:, :, 1].float())
+        plain = torch.softmax(logits * last.scale, dim=-1)
+    row_sums = attn.float().sum(-1)
+    err = float((attn.float() - plain).abs().max())
+    sum_err = float((row_sums - 1).abs().max())
+    want = dict.fromkeys(LAUNCHES_PER_STEP, 0)
+    want["K1-fwd"] = len(vit.blocks) - 1
+    emit({"phase": "main_path", "path": "last_selfattention", "gpu": card,
+          "config": "ccd_finetune_ard.yaml backbone", "batch": BATCH,
+          "shape": list(attn.shape), "dtype": str(attn.dtype).replace("torch.", ""),
+          "max_abs_err_vs_plain": err, "tol": TOL_LAST_ATTN, "row_sum_max_abs_err": sum_err,
+          "tol_row_sum": TOL_ROW_SUM_BF16,
+          "kernel_launches": launches})
+    if tuple(attn.shape) != (BATCH, last.num_heads, 256, 256) or not err <= TOL_LAST_ATTN \
+            or not sum_err <= TOL_ROW_SUM_BF16 or launches != want:
+        raise SystemExit(f"last_selfattention: shape {tuple(attn.shape)}, error {err}, row "
+                         f"sums off by {sum_err}, launches {launches} (expected {want})")
+    return launches["K1-fwd"]
+
+
+def convergence_short_phase(card: str) -> None:
+    """``python -m ccd_tpu_torch.cli.convergence_demo`` on the card at
+    ``vit_tiny``, ``out_dim`` 8192, ``--easy --no_aug``, CONV_SHORT
+    iterations a phase: every phase's process exits 0; the pretrain losses
+    are finite and fall; the handoff arm read the pretraining checkpoint,
+    and its teacher's backbone loads into a recognizer by name, equal entry
+    for entry. Both arms' accuracies are printed, not gated."""
+    tmp = tempfile.mkdtemp(prefix="ccd_chip_smoke_convergence_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(PKG_DIR)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "ccd_tpu_torch.cli.convergence_demo", "--workdir", tmp,
+           "--easy", "--no_aug", "--arch", "vit_tiny", "--out_dim", "8192",
+           *[str(a) for kv in CONV_SHORT.items() for a in (f"--{kv[0]}", kv[1])]]
+    try:
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=900)
+        wall = time.time() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise SystemExit(f"convergence demo exited with {proc.returncode}:\n{log[-4000:]}")
+        with open(os.path.join(tmp, "CONVERGENCE.json")) as f:
+            summary = json.load(f)
+        with open(os.path.join(tmp, "conv_ft_handoff.log")) as f:
+            handoff_log = f.read()
+        with open(os.path.join(tmp, "pretrain.log")) as f:
+            reader = "LMDB reader: native" in f.read()
+        losses = [loss for _, loss in summary["pretrain"]["loss_curve"]]
+        ckpt_dir = os.path.join(tmp, "saved_models", "conv_pretrain")
+        config = Config(os.path.join(tmp, "configs", "conv_ft_handoff.yaml"))
+        model, _ = build_recognizer(config, device="cpu")
+        load_pretrained_backbone(ckpt_dir, model)
+        manager = CheckpointManager(ckpt_dir)
+        teacher = torch.load(manager.path(manager.latest_step()), map_location="cpu",
+                             weights_only=True)["teacher"]
+        by_name = all(torch.equal(v, teacher[f"backbone.{k}"])
+                      for k, v in model.backbone.state_dict().items())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "convergence_short", "gpu": card, "arch": "vit_tiny", "out_dim": 8192,
+          "flags": "--easy --no_aug", **CONV_SHORT, "process_wall_s": wall,
+          "wall_s": summary["wall_s"], "pretrain_loss_curve": summary["pretrain"]["loss_curve"],
+          "handoff": summary["handoff"], "scratch": summary["scratch"],
+          "pretrain_reader_native": reader,
+          "debug_decode_greedy_correct": {arm: d["greedy_correct"]
+                                          for arm, d in summary["debug_decode"].items()},
+          "teacher_backbone_loaded_by_name": by_name})
+    if len(losses) < 2 or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"convergence_short: pretrain losses {losses} are not finite and "
+                         "falling")
+    if "Read pretrain vision model from" not in handoff_log or not by_name or not reader:
+        raise SystemExit("convergence_short: the handoff did not load the teacher backbone by "
+                         "name, or the pretraining did not read through the native reader")
+
+
 PRETRAIN_TAGS = {f"metric/{k}" for k in ("loss", "mask_loss", "dino_loss", "lr", "wd")}
 FINETUNE_TAGS = {"metric/train_loss", "metric/lr", "metric/eval_acc", "Mask/Input_image",
                  "Mask/vis_Maps"}
@@ -1796,12 +2137,17 @@ def train_cli_phase(card: str, keep_dir: str) -> str:
             ckpt = os.path.join(run_dir, "saved_models", cfg["global"]["name"],
                                 f"ckpt_{max_iters:08d}.pt")
             resumed = f"resuming from checkpoint step {CLI_ITERS}" in log
+            reader = re.search(r"LMDB reader: (\w+)", log)
             if rate is None or len(logged) < 2 or not all(np.isfinite([x[2] for x in logged])) \
                     or not os.path.isfile(ckpt) or resumed != resumes:
                 raise SystemExit(f"train CLI to {max_iters}: no rate, a non-finite loss, no "
                                  f"checkpoint or a wrong resume ({resumed}):\n{log[-4000:]}")
+            if reader is None or reader.group(1) != "native":
+                raise SystemExit(f"train CLI: the dataset did not read through the native "
+                                 f"LMDB reader ({reader and reader.group(0)}):\n{log[-4000:]}")
             (t_first, it_first, _), (t_last, it_last, _) = logged[0], logged[-1]
             runs.append({"loader_threads": workers or int(cfg["dataset"]["num_workers"]),
+                         "lmdb_reader": reader.group(1),
                          "tensorboard": tensorboard_report(
                              os.path.join(run_dir, "tensorboard", cfg["global"]["name"]), log,
                              PRETRAIN_TAGS),
@@ -2454,7 +2800,8 @@ def main() -> None:
     rows, width = 2 * PRETRAIN_BATCH * 26, 65536
     ce = [check_fused_ce(rows, width, bf16, True, gen),
           check_fused_ce(rows, width, f32, True, gen),
-          check_fused_ce(2 * VIT_BASE_BATCH * 26, width, bf16, True, gen)]  # ViT-Base's rows
+          check_fused_ce(2 * VIT_BASE_BATCH * 26, width, bf16, True, gen),  # ViT-Base's rows
+          check_fused_ce(rows, 8192, bf16, True, gen)]       # the convergence demo's out_dim
     ce += [check_fused_ce(2 * 7 * 26, k, dtype, swap, gen)   # K = 1001: the scalar path
            for k in (1000, 1001) for dtype in (bf16, f32) for swap in (True, False)]
     ce.append(check_fused_ce(7, 100, f32, False, gen))       # odd rows without swap_halves
@@ -2520,7 +2867,11 @@ def main() -> None:
     sev2_launches = severity_2_pretrain_step(card)
     reset_kernel_counts()
     abinet_launches = abinet_finetune_step(card)
+    opt_launches = optimizers_phase(card)      # counts set to 0 before each optimizer's run
+    remat_launches = remat_phase(card)         # and before each of its two runs
+    attention_launches = last_selfattention_phase(card)
     augmentation_chains(card)
+    native_reader_phase(card)
     keep = tempfile.mkdtemp(prefix="ccd_chip_smoke_keep_")
     try:
         kept = train_cli_phase(card, keep)
@@ -2532,6 +2883,7 @@ def main() -> None:
         generate_masks_phase(card)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    convergence_short_phase(card)
 
     # the K1b bounds once more at the copy rate the calibration measured
     measured_rate = calib["measured_copy_gb_per_s"] * 1e9
@@ -2540,8 +2892,10 @@ def main() -> None:
             head["bytes"], head["flops"], getattr(torch, head["dtype"]), measured_rate)[0]
     by_path = {"pretrain": train_launches, "finetune": ft_launches,
                "pretrain_vit_base": base_launches, "pretrain_severity_2": sev2_launches,
-               "finetune_abinet": abinet_launches}
+               "finetune_abinet": abinet_launches, "pretrain_sgd_lars": opt_launches,
+               "pretrain_remat": remat_launches}
     k1_fwd = {"evaluation": eval_launches, "calibrate": calib_launches["K1-fwd"],
+              "last_selfattention": attention_launches,
               **{path: n["K1-fwd"] for path, n in by_path.items()},
               "overfit_probe": probe["launches"]["K1-fwd"], "parity_eval": parity_launches}
     k1_bwd = {**{path: n["K1-bwd"] for path, n in by_path.items()},

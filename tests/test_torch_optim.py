@@ -182,3 +182,110 @@ def test_freeze_then_unfreeze_tracks_optax():
         p.grad = torch.from_numpy(g * min(1.0, 3.0 / (norm + 1e-6)))
         opt.step()
     assert np.abs(p.detach().numpy() - history[-1][1][v]).max() > 1e-4
+
+
+# sgd and lars: five steps with the learning rate and weight decay of each
+# step as the pretraining schedule hands them over (the first at wd 0)
+MOMENTUM_LRS = (0.0, 1e-2, 3e-2, 2e-2, 1e-2)
+MOMENTUM_WDS = (0.0, 0.04, 0.1, 0.2, 0.4)
+# lars's trust ratio is 1 where a norm is 0: a parameter that is all zeros
+# (the decayed pos_embed; its gradient is 0 too at every step, so its update
+# norm is 0 as well) and one whose gradient is 0 at the first step, at wd 0
+ZERO_PARAM, ZERO_GRAD_AT_FIRST = "backbone.pos_embed", "segmentation.cls.weight"
+
+
+def _run_momentum(name, norm_last_layer, frozen_steps):
+    """The optimizer part of the pretraining step with ``make_optimizer(name)``
+    on both sides, in ``make_pretrain_step``'s order: clip, zero the last
+    layer's gradients while frozen, the optimizer, zero its update while
+    frozen, apply."""
+    p0 = _values(30)
+    p0[ZERO_PARAM][:] = 0.0
+    jparams = jax.tree_util.tree_map(jnp.asarray, _jax_tree(p0))
+    tx = jopt.make_optimizer(name, jparams, norm_last_layer=norm_last_layer)
+    jstate = tx.init(jparams)
+    tparams = {n: torch.from_numpy(v.copy()) for n, v in p0.items()}
+    tstate = topt.optimizer_init(name, tparams)
+    names = list(tparams)
+    decay = topt.weight_decay_mask(tparams, norm_last_layer)
+    history = []
+    for i, (lr, wd) in enumerate(zip(MOMENTUM_LRS, MOMENTUM_WDS)):
+        freeze = i < frozen_steps
+        grads = _values(40 + i, scale=0.7)
+        grads[ZERO_PARAM][:] = 0.0
+        if i == 0:
+            grads[ZERO_GRAD_AT_FIRST][:] = 0.0
+        if norm_last_layer:
+            grads["head.last_layer.weight_g"][:] = 0.0  # stop_gradient on the gain
+
+        jg = jopt.clip_gradients_per_param(
+            jax.tree_util.tree_map(jnp.asarray, _jax_tree(grads)), 3.0)
+        jg = jopt.cancel_last_layer_grads(jg, jnp.asarray(freeze))
+        jstate.hyperparams["learning_rate"] = jnp.float32(lr)
+        jstate.hyperparams["weight_decay"] = jnp.float32(wd)
+        updates, jstate = tx.update(jg, jstate, jparams)
+        updates = jopt.cancel_last_layer_grads(updates, jnp.asarray(freeze))
+        jparams = optax.apply_updates(jparams, updates)
+
+        tg = topt.clip_gradients_per_param([torch.from_numpy(g) for g in grads.values()], 3.0)
+        tg = topt.cancel_last_layer_grads(names, tg, freeze)
+        tu = topt.optimizer_updates(tg, tstate, list(tparams.values()),
+                                    [decay[n] for n in names], lr, wd)
+        tu = topt.cancel_last_layer_grads(names, tu, freeze)
+        torch._foreach_add_(list(tparams.values()), tu)
+        history.append((_flat_from_jax(jparams), {n: v.numpy().copy()
+                                                  for n, v in tparams.items()}))
+    return p0, history, tstate
+
+
+@pytest.mark.parametrize("norm_last_layer", [True, False])
+@pytest.mark.parametrize("name", ["sgd", "lars"])
+def test_sgd_and_lars_track_optax_through_a_freeze(name, norm_last_layer):
+    """Five steps of ``make_optimizer("sgd")`` / ``("lars")`` (optax 0.2.6)
+    with scheduled lr and wd, the last layer frozen for the first two: every
+    parameter within rtol 1e-6 (atol 1e-9 for the entries that stay at 0).
+    While frozen the last layer stays put, but its momentum gathers the
+    weight-decay term (and, for lars, its trust-scaled form), so it moves at
+    the first unfrozen step by more than that step's own gradient would."""
+    p0, history, tstate = _run_momentum(name, norm_last_layer, frozen_steps=2)
+    for step, (ref, out) in enumerate(history):
+        for n in SHAPES:
+            np.testing.assert_allclose(out[n], ref[n], rtol=1e-6, atol=1e-9,
+                                       err_msg=f"{name} step {step} {n}")
+    v = "head.last_layer.weight_v"
+    for step in (0, 1):
+        np.testing.assert_array_equal(history[step][1][v], p0[v])
+    assert np.abs(history[2][1][v] - p0[v]).max() > 0
+    assert tstate.name == name and len(tstate.trace) == len(SHAPES)
+    trace = dict(zip(SHAPES, tstate.trace))
+    np.testing.assert_array_equal(history[-1][1][ZERO_PARAM], 0.0)  # trust ratio 1, update 0
+    assert float(trace[ZERO_PARAM].abs().max()) == 0.0
+    g = "head.last_layer.weight_g"
+    if norm_last_layer:  # no gradient and no decay: the frozen gain never moves
+        np.testing.assert_array_equal(history[-1][1][g], p0[g])
+
+
+def test_sgd_and_lars_take_the_momentum_on_either_side_of_the_learning_rate():
+    """One step at lr 0 and wd 0.1, then one at lr 0.1 and wd 0 with a zero
+    gradient: sgd's momentum gathered ``wd * p`` at lr 0 (the momentum is
+    taken before the learning rate) and moves the parameters at the second
+    step; lars's gathered ``-0 * ...`` and nothing moves."""
+    p = {"w": torch.full((2, 3), 2.0)}
+    for name, moves in (("sgd", True), ("lars", False)):
+        state = topt.optimizer_init(name, p)
+        params = [p["w"].clone()]
+        for lr, wd in ((0.0, 0.1), (0.1, 0.0)):
+            u = topt.optimizer_updates([torch.zeros(2, 3)], state, params, [True], lr, wd)
+            torch._foreach_add_(params, u)
+        moved = float((params[0] - 2.0).abs().max())
+        if moves:
+            np.testing.assert_allclose(moved, 0.1 * 0.9 * 0.1 * 2.0, rtol=1e-6)
+        else:
+            assert moved == 0.0
+
+
+def test_an_unknown_optimizer_name_raises_as_make_optimizer_does():
+    with pytest.raises(ValueError, match="unknown optimizer 'adagrad'"):
+        topt.optimizer_init("adagrad", {"w": torch.zeros(2)})
+    with pytest.raises(ValueError, match="unknown optimizer 'adagrad'"):
+        jopt.make_optimizer("adagrad", {"w": jnp.zeros(2)})

@@ -22,7 +22,8 @@ MODULES = ("ops.flash_attention", "ops.fused_dino_ce", "ops.image", "ops.pooling
            "training.finetune_step", "cli.train_finetune", "cli.calibrate",
            "evaluation.runner", "models.recognizer", "models.nrtr",
            "checkpoints.torch_export", "cli.parity_eval", "cli.overfit_probe",
-           "cli.generate_masks", "ops.kmeans_mask")
+           "cli.generate_masks", "ops.kmeans_mask", "native", "cli.convergence_demo",
+           "cli.debug_decode")
 
 
 def _sources():

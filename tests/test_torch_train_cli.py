@@ -199,38 +199,64 @@ def test_train_cli_on_the_cpu_writes_a_checkpoint_and_resumes(tmp_path, monkeypa
     assert "it 2 epoch 0" in log and "it 1 epoch 0" in log
 
 
-@pytest.mark.parametrize("name,trains", [("sgd", False), ("lars", False), ("adamw", True),
-                                         ("", True)])
-def test_train_cli_refuses_an_optimizer_it_has_not_ported(tmp_path, monkeypatch, name, trains):
+@pytest.mark.parametrize("name,trains", [("sgd", True), ("lars", True), ("adamw", True),
+                                         ("", True), ("adagrad", False)])
+def test_train_cli_refuses_an_optimizer_it_has_not_ported(tmp_path, monkeypatch, caplog, name,
+                                                          trains):
     """The configuration's ``optimizer`` is read: ``adamw`` (or none, as
-    train.py defaults it) trains; ``sgd`` and ``lars``, which the JAX CLI
-    builds, are refused before any step runs instead of training with AdamW."""
+    train.py defaults it), ``sgd`` and ``lars`` train one iteration, and a
+    second run resumes from the checkpoint with the optimizer's own state
+    (sgd/lars: the momentum, non-zero after a step at a non-zero learning
+    rate). A name that ``make_optimizer`` does not know is refused with its
+    ``ValueError`` before any step runs."""
     import yaml
 
     from ccd_tpu_torch.cli.train import main
     monkeypatch.chdir(tmp_path)
+    caplog.set_level(logging.INFO)  # pytest's handlers make the CLI's basicConfig a no-op
     with open(SMOKE) as f:
         cfg = yaml.safe_load(f)
     cfg["optimizer"] = name
     path = tmp_path / "pretrain.yaml"
     path.write_text(yaml.safe_dump(cfg))
-    args = ["-c", str(path), "--synthetic", "8", "--batch_size_per_gpu", "4", "--device", "cpu",
-            "--max_iters", "1"]
-    if trains:
-        out = main(args)
-        assert out["iteration"] == 1 and np.isfinite(out["last"]["loss"])
-    else:
-        with pytest.raises(NotImplementedError, match=r"queue 1 \(5\)"):
-            main(args)
+    args = ["-c", str(path), "--synthetic", "8", "--batch_size_per_gpu", "4", "--device", "cpu"]
+    if not trains:
+        with pytest.raises(ValueError, match="unknown optimizer 'adagrad'"):
+            main(args + ["--max_iters", "1"])
         assert not (tmp_path / "saved_models" / "smoke_pretrain").exists()
+        return
+    out = main(args + ["--max_iters", "1"])
+    assert out["iteration"] == 1 and np.isfinite(out["last"]["loss"])
+    if name in ("sgd", "lars"):
+        ckpt = tmp_path / "saved_models" / "smoke_pretrain" / "ckpt_00000001.pt"
+        saved = torch.load(ckpt, weights_only=True)["opt_state"]
+        assert saved["optimizer"] == name and set(saved) == {"optimizer", "trace"}
+        resumed = main(args + ["--max_iters", "2"])
+        assert resumed["iteration"] == 2 and np.isfinite(resumed["last"]["loss"])
+        log = (tmp_path / "workdir" / "smoke_pretrain" / "train.txt").read_text()
+        assert "resuming from checkpoint step 1" in log
 
 
 def test_init_pretrain_state_refuses_an_optimizer_it_has_not_ported():
+    """An optimizer name ``make_optimizer`` does not know raises its
+    ``ValueError``; sgd and lars build their momentum. A student with
+    ``use_bn_in_head`` is refused with the JAX step's own failure: its head
+    BatchNorm cannot update its statistics there."""
     student = CCDPretrainModel(arch="vit_micro", out_dim=64, with_seg_head=False)
     teacher = CCDPretrainModel(arch="vit_micro", out_dim=64, with_seg_head=False)
-    with pytest.raises(NotImplementedError, match="sgd"):
-        init_pretrain_state(student, teacher, optimizer="sgd")
+    with pytest.raises(ValueError, match="unknown optimizer 'adagrad'"):
+        init_pretrain_state(student, teacher, optimizer="adagrad")
     assert init_pretrain_state(student, teacher, optimizer="adamw").iteration == 0
+    for name in ("sgd", "lars"):
+        state = init_pretrain_state(student, teacher, optimizer=name)
+        assert state.opt_state.name == name
+        assert len(state.opt_state.trace) == len(list(student.parameters()))
+    bn_student = CCDPretrainModel(arch="vit_micro", out_dim=64, with_seg_head=False,
+                                  use_bn_in_head=True)
+    bn_teacher = CCDPretrainModel(arch="vit_micro", out_dim=64, with_seg_head=False,
+                                  use_bn_in_head=True)
+    with pytest.raises(NotImplementedError, match="ModifyScopeVariableError"):
+        init_pretrain_state(bn_student, bn_teacher)
 
 
 def test_train_cli_at_severity_2_writes_the_jax_clis_scalars(tmp_path, monkeypatch,
