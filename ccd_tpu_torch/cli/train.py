@@ -7,11 +7,21 @@ iteration runs on the card: uint8 images and glyph masks staged ahead by a
 background thread → 3-view augmentation with theta → student ViT + SegHead →
 glyph clusters → char pooling + DINO heads → both losses → AdamW → EMA
 teacher → centre EMA (``make_multi_pretrain_step``, K iterations per staged
-chunk). Single process, single device.
+chunk).
+
+One process, or one process per GPU under ``torchrun`` (data parallelism,
+``parallel/mesh.py``): every rank reads its shard of the data, the global
+batch is ``batch_size_per_gpu`` x the world size (it sets the learning
+rate, the warm-up and the virtual epochs, as in the JAX CLI), the step sums
+the ranks' gradients, and rank 0 alone writes checkpoints, the log and
+TensorBoard. ``mesh.num_devices`` must be null or the world size;
+``mesh.model_parallel`` above 1 (tensor parallelism) is refused until
+ROADMAP M11b.
 
 Usage:
   python -m ccd_tpu_torch.cli.train -c ccd_tpu_torch/configs/ccd_pretrain_vit_small.yaml \
       [--batch_size_per_gpu N] [--max_iters N] [--synthetic N] [--device cuda|cpu]
+  torchrun --standalone --nproc_per_node 8 -m ccd_tpu_torch.cli.train -c ...
 
 Runs on the GPU unless ``--device cpu`` is given; asking for the GPU on a
 machine without one is an error. Checkpoints go to
@@ -59,17 +69,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     "images_per_s" (with data loading), "checkpoint" (latest step saved)}``."""
     args = _parse_arguments(argv)
     from ccd_tpu_torch.config import Config
-    from ccd_tpu_torch.utils import Logger, resolve_device
+    from ccd_tpu_torch.parallel.mesh import distributed_run, pretrain_mesh, rank
+    from ccd_tpu_torch.utils import resolve_device
+    from ccd_tpu_torch.utils.logging import run_log
 
     config = Config(args.config)
     config.override(arch=args.arch, batch_size_per_gpu=args.batch_size_per_gpu,
                     training_epochs=args.epochs, lr=args.lr, seed=args.seed)
-    device = resolve_device(args.device)
+    with distributed_run(resolve_device(args.device)) as device:
+        group = pretrain_mesh(config.mesh_num_devices, config.mesh_model_parallel)
+        with run_log(config, lead=rank(group) == 0):
+            return _run(config, args, device, group)
 
-    Logger.init(config.global_workdir, config.global_name, config.global_phase)
-    Logger.enable_file()
-    logging.info(config)
 
+def _run(config, args, device, group) -> dict:
     tmp = None
     try:
         if args.synthetic:
@@ -83,14 +96,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             config.dataset_train_roots = [root]
             config.dataset_mask_path = mask_root
             config.dataset_mask = True
-        return _train(config, args, device)
+        return _train(config, args, device, group)
     finally:
-        Logger.disable_file()
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _train(config, args, device) -> dict:
+def _train(config, args, device, group) -> dict:
     import numpy as np
     import torch
 
@@ -100,6 +112,7 @@ def _train(config, args, device) -> dict:
     from ccd_tpu_torch.data.pipeline import (DataLoader, device_chunks, infinite_batches,
                                              stage_pretrain_chunk, wait_for_chunk)
     from ccd_tpu_torch.losses import teacher_temp_schedule
+    from ccd_tpu_torch.parallel.mesh import backend, broadcast_module, rank, world
     from ccd_tpu_torch.training.pretrain_step import (init_pretrain_state,
                                                       make_multi_pretrain_step,
                                                       pretrain_state_payload,
@@ -108,6 +121,7 @@ def _train(config, args, device) -> dict:
     from ccd_tpu_torch.utils.logging import summary_writer
 
     # ------------------------------------------------------------ data
+    me, n_proc = rank(group), world(group)
     batch_size = int(config.batch_size_per_gpu or 64)
     h, w = int(config.dataset_image_height), int(config.dataset_image_width)
     train_ds = build_dataset(
@@ -116,19 +130,25 @@ def _train(config, args, device) -> dict:
         mask_path=config.dataset_mask_path or "",
         data_portion=float(config.dataset_portion or 1.0))
     loader = DataLoader(train_ds, batch_size=batch_size, shuffle=True, drop_last=True,
-                        num_workers=int(config.dataset_num_workers or 8))
+                        num_workers=int(config.dataset_num_workers or 8),
+                        process_index=me, process_count=n_proc)
     config.iter_num = len(loader)
     logging.info(f"each epoch iteration: {config.iter_num}")
     logging.info(f"LMDB reader: {train_ds.reader}")
+    logging.info(f"data parallel: {n_proc} process(es), rank {me}, "
+                 f"{'no process group' if group is None else backend(group) + ' group'}, "
+                 f"global batch {batch_size * n_proc}")
 
     # ------------------------------------------------------------ models
     seed = int(config.seed or 0)
     student, teacher = build_pretrain_models(
         config, device=device, generator=torch.Generator().manual_seed(seed))
     state = init_pretrain_state(student, teacher, seed=seed,
-                                optimizer=str(config.optimizer or "adamw"))
+                                optimizer=str(config.optimizer or "adamw"), process=me)
+    for module in (student, teacher):  # every rank starts from rank 0's weights
+        broadcast_module(module, group)
 
-    global_batch = batch_size
+    global_batch = batch_size * n_proc
     total_iters = max(int(config.training_epochs) * config.iter_num, 1)
     # virtual-epoch count (train.py:118-119)
     nepochs = int(config.training_epochs * config.iter_num * global_batch
@@ -152,15 +172,18 @@ def _train(config, args, device) -> dict:
         clip_grad=config.clip_grad,
         freeze_last_layer=int(config.freeze_last_layer),
         global_batch=global_batch,
-        imgnet_based=int(config.imgnet_based))
+        imgnet_based=int(config.imgnet_based),
+        group=group)
 
     ckpt_dir = os.path.join(config.output_dir, config.global_name)
     manager = CheckpointManager(ckpt_dir, max_to_keep=3,
-                                keep_period=int(config.saveckp_freq or 10))
+                                keep_period=int(config.saveckp_freq or 10), group=group)
     latest = manager.latest_step()
     if latest is not None:
         logging.info(f"resuming from checkpoint step {latest}")
-        restore_pretrain_state(state, manager.restore(latest, map_location=device))
+        restore_pretrain_state(state, manager.restore(latest, map_location=device), group)
+        for module in (student, teacher):
+            broadcast_module(module, group)
 
     metric_logger = MetricLogger(delimiter="  ")
     # background staging: K uint8 batches stacked, pinned and copied ahead of
@@ -171,7 +194,8 @@ def _train(config, args, device) -> dict:
     iteration = state.iteration
     start_iteration = iteration
     global_epoch = 0
-    writer = summary_writer(config.global_name)  # None without TensorBoard; before the clock
+    # None without TensorBoard or off rank 0; before the clock
+    writer = summary_writer(config.global_name) if me == 0 else None
     start = time.time()
     n_steps = min(total_iters, args.max_iters or total_iters)
     if args.max_iters and args.max_iters > total_iters:
@@ -211,13 +235,14 @@ def _train(config, args, device) -> dict:
             epoch = int(iteration * global_batch // config.imgnet_based)
             if epoch != global_epoch:
                 global_epoch = epoch
-                metric_logger.synchronize_between_processes()
+                metric_logger.synchronize_between_processes(group)
                 logging.info(f"Averaged stats: {metric_logger}")
-                manager.save(iteration, pretrain_state_payload(state))
-                stats = {f"train_{k}": m.global_avg for k, m in metric_logger.meters.items()}
-                stats["epoch"] = epoch
-                with open(log_path, "a") as f:
-                    f.write(json.dumps(stats) + "\n")
+                manager.save(iteration, pretrain_state_payload(state, group))
+                if me == 0:
+                    stats = {f"train_{k}": m.global_avg for k, m in metric_logger.meters.items()}
+                    stats["epoch"] = epoch
+                    with open(log_path, "a") as f:
+                        f.write(json.dumps(stats) + "\n")
                 metric_logger = MetricLogger(delimiter="  ")
 
             if iteration % show_iters < k_steps:  # boundary crossed this chunk
@@ -229,7 +254,7 @@ def _train(config, args, device) -> dict:
                     logging.error(f"Loss is {last['loss']}, stopping training")
                     sys.exit(1)
                 metric_logger.update(loss=last["loss"], lr=last["lr"], wd=last["wd"])
-                ips = batch_size * (iteration - start_iteration) / (time.time() - start)
+                ips = global_batch * (iteration - start_iteration) / (time.time() - start)
                 logging.info(f"it {iteration - 1} epoch {epoch} loss {last['loss']:.4f} "
                              f"(mask {last['mask_loss']:.4f} dino {last['dino_loss']:.4f}) "
                              f"lr {last['lr']:.2e} {ips:.1f} img/s")
@@ -240,10 +265,10 @@ def _train(config, args, device) -> dict:
         if writer is not None:
             writer.close()
 
-    manager.save(iteration, pretrain_state_payload(state))
+    manager.save(iteration, pretrain_state_payload(state, group))
     manager.wait()
     total = time.time() - start
-    images_per_s = batch_size * (iteration - start_iteration) / total
+    images_per_s = global_batch * (iteration - start_iteration) / total
     logging.info(f"Training time {total:.0f}s ({images_per_s} img/s with data loading)")
     return {"iteration": iteration, "last": last, "images_per_s": images_per_s,
             "checkpoint": manager.latest_step()}

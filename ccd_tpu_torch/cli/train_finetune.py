@@ -7,13 +7,21 @@ best-checkpoint keeping. Each iteration runs on the card: uint8 images and
 int32 targets staged ahead by a background thread → ``supervised_augment`` →
 normalisation → ViT + Mlp encoder + NRTR decoder (teacher forced) →
 ``tf_loss`` → backward → global-norm clipping → AdamW
-(``make_multi_finetune_step``, K iterations per staged chunk). Single
-process, single device.
+(``make_multi_finetune_step``, K iterations per staged chunk).
+
+One process, or one process per GPU under ``torchrun`` (data parallelism,
+``parallel/mesh.py``): every rank reads its shard of the training data
+(``batch_size`` is per process), the step sums the ranks' gradients, every
+evaluation is sharded over the ranks and each gets the full benchmarks'
+figures, and rank 0 alone writes checkpoints, the evaluation log and
+TensorBoard. ``mesh.num_devices`` must be null or the world size;
+``mesh.model_parallel`` above 1 is refused until ROADMAP M11b.
 
 Usage:
   python -m ccd_tpu_torch.cli.train_finetune -c ccd_tpu_torch/configs/ccd_finetune_ard.yaml \
       [--batch_size N] [--checkpoint path] [--run_only_test] [--test_root p] \
       [--epochs N] [--eval_iters N] [--max_iters N] [--synthetic N] [--device cuda|cpu]
+  torchrun --standalone --nproc_per_node 8 -m ccd_tpu_torch.cli.train_finetune -c ...
 
 Runs on the GPU unless ``--device cpu`` is given; asking for the GPU on a
 machine without one is an error. ``model.pretrain_checkpoint`` in the
@@ -116,7 +124,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     "best_accuracy", "images_per_s" (with data loading), "checkpoint"}``."""
     args = _parse_arguments(argv)
     from ccd_tpu_torch.config import Config
-    from ccd_tpu_torch.utils import Logger, resolve_device
+    from ccd_tpu_torch.parallel.mesh import distributed_run, pretrain_mesh, rank
+    from ccd_tpu_torch.utils import resolve_device
+    from ccd_tpu_torch.utils.logging import run_log
 
     config = Config(args.config)
     config.override(dataset_train_batch_size=args.batch_size,
@@ -124,12 +134,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     training_eval_iters=args.eval_iters)
     if args.test_root:
         config.dataset_test_roots = [args.test_root]
-    device = resolve_device(args.device)
+    with distributed_run(resolve_device(args.device)) as device:
+        # the JAX CLI lays a data mesh (train_finetune.py:244); the model
+        # axis is refused in the same words as the pretraining CLI's
+        group = pretrain_mesh(config.mesh_num_devices, config.mesh_model_parallel)
+        with run_log(config, lead=rank(group) == 0):
+            return _run(config, args, device, group)
 
-    Logger.init(config.global_workdir, config.global_name, config.global_phase)
-    Logger.enable_file()
-    logging.info(config)
 
+def _run(config, args, device, group) -> dict:
     tmp = None
     try:
         if args.synthetic:
@@ -141,14 +154,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             write_synthetic_lmdb(test_root, max(args.synthetic // 4, 8), seed=2)
             config.dataset_train_roots = [train_root]
             config.dataset_test_roots = [test_root]
-        return _train(config, args, device)
+        return _train(config, args, device, group)
     finally:
-        Logger.disable_file()
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _train(config, args, device) -> dict:
+def _train(config, args, device, group) -> dict:
     import numpy as np
     import torch
 
@@ -160,6 +172,7 @@ def _train(config, args, device) -> dict:
     from ccd_tpu_torch.data.pipeline import (DataLoader, device_chunks, infinite_batches,
                                              stage_finetune_chunk, wait_for_chunk)
     from ccd_tpu_torch.evaluation.runner import evaluate_benchmarks
+    from ccd_tpu_torch.parallel.mesh import backend, broadcast_module, rank, world
     from ccd_tpu_torch.training.finetune_step import (finetune_state_payload,
                                                       init_finetune_state,
                                                       make_multi_finetune_step,
@@ -168,6 +181,7 @@ def _train(config, args, device) -> dict:
     from ccd_tpu_torch.utils.meters import Averager, Timer
 
     # ------------------------------------------------------------ data
+    me, n_proc = rank(group), world(group)
     batch_size = int(config.dataset_train_batch_size or 288)
     max_seq_len = int(config.decoder_max_seq_len)
     charset = config.dataset_charset_type or "DICT90"
@@ -177,10 +191,14 @@ def _train(config, args, device) -> dict:
         data_portion=float(config.dataset_portion or 1.0),
         multiscales=bool(config.dataset_multiscales))
     loader = DataLoader(train_ds, batch_size=batch_size, shuffle=True, drop_last=True,
-                        num_workers=int(config.dataset_num_workers or 4))
+                        num_workers=int(config.dataset_num_workers or 4),
+                        process_index=me, process_count=n_proc)
     config.iter_num = len(loader)
     logging.info(f"each epoch iteration: {config.iter_num}")
     logging.info(f"LMDB reader: {train_ds.reader}")
+    logging.info(f"data parallel: {n_proc} process(es), rank {me}, "
+                 f"{'no process group' if group is None else backend(group) + ' group'}, "
+                 f"global batch {batch_size * n_proc}")
 
     # ------------------------------------------------------------ model
     seed = int(config.seed or 0)
@@ -192,7 +210,8 @@ def _train(config, args, device) -> dict:
     if config.model_checkpoint:
         logging.info(f"Read vision model from {config.model_checkpoint}.")
         load_recognizer_params(config.model_checkpoint, model)
-    state = init_finetune_state(model, seed=seed)
+    state = init_finetune_state(model, seed=seed, process=me)
+    broadcast_module(model, group)  # every rank starts from rank 0's weights
 
     ckpt_dir = os.path.join(config.output_dir, config.global_name)
     eval_loader_cache = {}  # benchmark datasets and loaders built once per run
@@ -203,7 +222,7 @@ def _train(config, args, device) -> dict:
             batch_size=int(config.dataset_test_batch_size or batch_size),
             max_seq_len=max_seq_len, charset_type=charset,
             case_sensitive=bool(config.dataset_eval_case_sensitive),
-            loader_cache=eval_loader_cache)
+            process_index=me, process_count=n_proc, loader_cache=eval_loader_cache)
         # per-benchmark evaluation log (reference train_finetune.py:352-371)
         evaluation_log = "" if iteration is None else f"iteration: {iteration} \n"
         for res in results:
@@ -213,10 +232,11 @@ def _train(config, args, device) -> dict:
             evaluation_log += line + "\n"
         logging.info(f"total_accuracy: {weighted:0.3f}")
         evaluation_log += f"total_accuracy: {weighted:0.3f}"
-        os.makedirs(ckpt_dir, exist_ok=True)
-        with open(os.path.join(ckpt_dir, "log_all_evaluation.txt"), "a") as log:
-            log.write("-" * 80 + "\n")
-            log.write(evaluation_log + "\n")
+        if me == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            with open(os.path.join(ckpt_dir, "log_all_evaluation.txt"), "a") as log:
+                log.write("-" * 80 + "\n")
+                log.write(evaluation_log + "\n")
         return weighted
 
     if args.run_only_test:
@@ -234,12 +254,12 @@ def _train(config, args, device) -> dict:
         aug_fn=aug_fn, base_lr=float(config.lr), min_lr=float(config.min_lr or 0.0),
         total_iters=total_iters,
         warmup_iters=int((config.warmup_epochs or 0) * config.iter_num),
-        weight_decay=float(config.weight_decay), clip_grad=config.clip_grad)
+        weight_decay=float(config.weight_decay), clip_grad=config.clip_grad, group=group)
 
     # ---- full-state resume (weights + AdamW moments + iteration + best):
     # a checkpoint of this run's own directory first, else a full payload at
     # --checkpoint (a reference .pth was loaded above as weights only)
-    manager = CheckpointManager(ckpt_dir, max_to_keep=3)
+    manager = CheckpointManager(ckpt_dir, max_to_keep=3, group=group)
     best_path = os.path.join(ckpt_dir, "best_accuracy.pt")
     best_accuracy = 0.0
     payload = None
@@ -249,7 +269,8 @@ def _train(config, args, device) -> dict:
     elif config.model_checkpoint:
         payload = load_finetune_payload(config.model_checkpoint, map_location=device)
     if payload is not None:
-        restore_finetune_state(state, payload)
+        restore_finetune_state(state, payload, group)
+        broadcast_module(model, group)
         best_accuracy = float(payload["best_accuracy"])
         logging.info(f"continue to train:{state.iteration} (best_accuracy {best_accuracy:0.3f})")
 
@@ -274,7 +295,8 @@ def _train(config, args, device) -> dict:
             f"with the actual iteration count")
     pending = []
     loss_avg, timer = Averager(), Timer()
-    writer = summary_writer(config.global_name)  # None without TensorBoard; before the clock
+    # None without TensorBoard or off rank 0; before the clock
+    writer = summary_writer(config.global_name) if me == 0 else None
     start = time.time()
     try:
         while iteration < n_steps:
@@ -295,7 +317,7 @@ def _train(config, args, device) -> dict:
                 for v in losses:
                     loss_avg.add(v)
                 lr = float(metrics["lr"][-1])
-                ips = batch_size * (iteration - start_iteration) / (time.time() - start)
+                ips = batch_size * n_proc * (iteration - start_iteration) / (time.time() - start)
                 logging.info(f"iteration:{iteration - 1}--> train loss:{loss_avg.val():.4f} "
                              f"lr:{lr:.2e} ({time.time() - start:.0f}s, {ips:.1f} img/s, "
                              f"data wait {1e3 * timer.average_data_time():.1f} ms/chunk)")
@@ -317,10 +339,11 @@ def _train(config, args, device) -> dict:
                     # retention never evicts (reference best_accuracy.pth,
                     # train_finetune.py:373-378), overwritten on improvement
                     best_accuracy = acc
-                    save_payload(best_path, finetune_state_payload(state, best_accuracy))
+                    save_payload(best_path, finetune_state_payload(state, best_accuracy, group),
+                                 group)
 
             if iteration >= k_steps and iteration % save_iters < k_steps:
-                manager.save(iteration, finetune_state_payload(state, best_accuracy))
+                manager.save(iteration, finetune_state_payload(state, best_accuracy, group))
     finally:
         if writer is not None:
             writer.close()
@@ -328,16 +351,17 @@ def _train(config, args, device) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     total = time.time() - start
-    images_per_s = batch_size * (iteration - start_iteration) / total if total > 0 else 0.0
+    images_per_s = (batch_size * n_proc * (iteration - start_iteration) / total
+                    if total > 0 else 0.0)
     logging.info(f"Training time {total:.0f}s ({images_per_s} img/s with data loading)")
 
     # final eval + save (labeled with the ACTUAL trained iteration count)
     acc = run_eval(iteration)
     if acc >= best_accuracy:
         best_accuracy = acc
-        save_payload(best_path, finetune_state_payload(state, best_accuracy))
+        save_payload(best_path, finetune_state_payload(state, best_accuracy, group), group)
     if manager.latest_step() != iteration:
-        manager.save(iteration, finetune_state_payload(state, best_accuracy))
+        manager.save(iteration, finetune_state_payload(state, best_accuracy, group))
     manager.wait()
     logging.info(f"done: final accuracy {acc:0.3f}, best {best_accuracy:0.3f}")
     return {"iteration": iteration, "accuracy": acc, "best_accuracy": best_accuracy,

@@ -17,8 +17,10 @@ import time
 from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ccd_tpu_torch.evaluation.editdistance import levenshtein
+from ccd_tpu_torch.parallel.mesh import Group, all_reduce_max, all_reduce_sum, default_group
 
 _NORMALIZE = re.compile("[^A-Z^a-z^0-9^一-龥]")
 
@@ -67,16 +69,23 @@ class TextAccuracy:
         self.total_ned += other.total_ned
         self.inference_time = max(self.inference_time, other.inference_time)
 
-    def synchronize_between_processes(self) -> None:
-        """Sum counters over all processes (parity: the reference's meter
-        ``dist.all_reduce``, ``Dino/modules/utils.py:253-264``); no-op on a
-        single process. The multi-process sum arrives with multi-GPU
-        evaluation."""
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "TextAccuracy.synchronize_between_processes: multi-process "
-                "evaluation is not ported yet")
+    _COUNTERS = ("total_num_char", "total_num_word", "correct_num_char", "correct_num_word",
+                 "total_ed", "total_ned")
+
+    def synchronize_between_processes(self, group: Group = None) -> None:
+        """Sum the counters over ``group`` (default: the default group) and
+        take the largest inference time, as :meth:`merge` folds shards that
+        ran side by side (parity: the reference's meter ``dist.all_reduce``,
+        ``Dino/modules/utils.py:253-264``); no-op without a group."""
+        group = default_group() if group is None else group
+        if group is None:
+            return
+        sums = all_reduce_sum(torch.tensor([getattr(self, k) for k in self._COUNTERS],
+                                           dtype=torch.float64), group, "accuracy")
+        for k, v in zip(self._COUNTERS, sums.tolist()):
+            setattr(self, k, v)
+        self.inference_time = float(all_reduce_max(
+            torch.tensor([self.inference_time], dtype=torch.float64), group, "accuracy_time")[0])
 
     def result(self) -> Dict[str, float]:
         mets = [

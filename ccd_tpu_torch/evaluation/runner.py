@@ -19,6 +19,7 @@ from ccd_tpu_torch.convertor import AttnConvertor
 from ccd_tpu_torch.data.dataset import SupervisedDataset, build_dataset
 from ccd_tpu_torch.data.pipeline import DataLoader
 from ccd_tpu_torch.evaluation.accuracy import TextAccuracy
+from ccd_tpu_torch.parallel.mesh import default_group, rank, world
 
 # ImageNet statistics the images are normalised with (Dino/dataset: Normalize)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -60,19 +61,27 @@ def evaluate_benchmarks(model, test_roots: Sequence[str],
                         num_workers: int = 4,
                         names: Optional[Sequence[str]] = None,
                         test_speed: bool = False,
+                        process_index: Optional[int] = None,
+                        process_count: Optional[int] = None,
                         loader_cache: Optional[dict] = None,
                         ) -> Tuple[List[Dict[str, float]], float]:
     """Run the 11-benchmark-style eval; returns (per-set metrics, weighted acc).
 
-    One process evaluates every benchmark in full (sharding over processes
-    arrives with multi-GPU evaluation). ``names`` label the results in place
-    of the roots. ``loader_cache``: pass the same dict across periodic
+    With several processes (``process_index`` / ``process_count``, by
+    default the default ``torch.distributed`` group's rank and size) each
+    evaluates a disjoint, rank-strided shard of every benchmark and the
+    counters are summed over the processes
+    (``TextAccuracy.synchronize_between_processes``), so every process
+    returns the full benchmarks' figures. ``names`` label the results in
+    place of the roots. ``loader_cache``: pass the same dict across periodic
     evaluations (the finetune loop does) to reuse each benchmark's dataset
-    and loader, one per (root, batch, max_seq_len, charset, workers): the
-    LMDB is opened and scanned once per run instead of once per evaluation.
-    The model decodes in evaluation mode and is left in the mode it was
-    found in.
+    and loader, one per (root, batch, max_seq_len, charset, workers, shard):
+    the LMDB is opened and scanned once per run instead of once per
+    evaluation. The model decodes in evaluation mode and is left in the mode
+    it was found in.
     """
+    pidx = rank(default_group()) if process_index is None else process_index
+    pcnt = world(default_group()) if process_count is None else process_count
     was_training = model.training
     model.eval()
     try:
@@ -83,17 +92,20 @@ def evaluate_benchmarks(model, test_roots: Sequence[str],
         total_acc = 0.0
         total_words = 0.0
         for i, root in enumerate(test_roots):
-            key = (str(root), batch_size, max_seq_len, charset_type, num_workers)
+            key = (str(root), batch_size, max_seq_len, charset_type, num_workers, pidx, pcnt)
             loader = None if loader_cache is None else loader_cache.get(key)
             if loader is None:
                 ds = build_dataset(SupervisedDataset, [root], is_training=False,
                                    convertor=convertor, max_seq_len=max_seq_len)
                 loader = DataLoader(ds, batch_size=batch_size, shuffle=False,
-                                    drop_last=False, num_workers=num_workers)
+                                    drop_last=False, num_workers=num_workers,
+                                    process_index=pidx, process_count=pcnt)
                 if loader_cache is not None:
                     loader_cache[key] = loader
             acc = TextAccuracy(case_sensitive=case_sensitive)
             acc.compute(predict, ((images, texts) for images, _targets, texts in loader))
+            if pcnt > 1:  # only sum counters when the evaluation was sharded
+                acc.synchronize_between_processes()
             res = acc.result()
             res["name"] = names[i] if names else str(root)
             results.append(res)

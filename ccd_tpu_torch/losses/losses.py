@@ -13,6 +13,16 @@ Counterpart of ``ccd_tpu/losses/losses.py``. Parity targets:
     cross-entropy kernel (:mod:`ccd_tpu_torch.ops.fused_dino_ce`).
   * :func:`tf_loss` — the finetune path's teacher-forced CE
     (``train_finetune.py:276-282``).
+
+Data parallelism (``group``): each process holds a share of the global
+batch, and each loss returns that process's SHARE of the loss on the global
+batch, so that the ranks' losses, and their gradients, sum to the JAX
+step's on the concatenated batch (GSPMD reduces its means globally). The
+denominators are global: the valid char slots of the DINO CE and the
+non-PAD targets of ``tf_loss`` are all-reduced (a mean of per-rank means
+would weigh the ranks wrongly, their counts differ); ``seg_loss`` has the
+same count on every rank, so its share is the local mean over the world
+size. Without a group no collective runs and the losses are the plain ones.
 """
 
 from __future__ import annotations
@@ -21,18 +31,26 @@ import numpy as np
 import torch
 
 from ccd_tpu_torch.ops.fused_dino_ce import fused_dino_row_ce
+from ccd_tpu_torch.parallel.mesh import Group, all_reduce_sum, world
 
 
-def seg_loss(seg_logits: torch.Tensor, gt_masks: torch.Tensor) -> torch.Tensor:
+def _global_count(w: torch.Tensor, group: Group, what: str) -> torch.Tensor:
+    """The sum of the 0/1 weights ``w`` over the group, at least 1."""
+    return all_reduce_sum(w.sum().float().reshape(1), group, what)[0].clamp_min(1.0)
+
+
+def seg_loss(seg_logits: torch.Tensor, gt_masks: torch.Tensor,
+             group: Group = None) -> torch.Tensor:
     """Per-pixel 2-class CE of softmaxed mask logits vs {0,1} GT.
 
-    seg_logits: (N, H, W, 2); gt_masks: (N, H, W) in {0, 1}.
+    seg_logits: (N, H, W, 2); gt_masks: (N, H, W) in {0, 1}. Under ``group``
+    the rank's share: its mean over the world size.
     """
     probs = torch.softmax(seg_logits.float(), dim=-1)
     logp = torch.log_softmax(probs, dim=-1)  # reference's double softmax
     y = gt_masks.float()
     nll = -(logp[..., 0] * (1.0 - y) + logp[..., 1] * y)
-    return nll.mean()
+    return nll.mean() / world(group)
 
 
 def teacher_temp_schedule(warmup_teacher_temp: float, teacher_temp: float,
@@ -47,7 +65,7 @@ def teacher_temp_schedule(warmup_teacher_temp: float, teacher_temp: float,
 
 def dino_char_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
                    valid: torch.Tensor, center: torch.Tensor, teacher_temp: float,
-                   student_temp: float = 0.1) -> torch.Tensor:
+                   student_temp: float = 0.1, group: Group = None) -> torch.Tensor:
     """Cross-view character-distillation CE (the plain chain).
 
     student_logits/teacher_logits: (2B, T, K) — view-1 then view-2 halves.
@@ -61,7 +79,7 @@ def dino_char_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     t1, t2 = t[:b], t[b:]
 
     w = valid.float()
-    denom = w.sum().clamp_min(1.0)
+    denom = _global_count(w, group, "dino_denominator")
 
     def term(q, v):
         ce = (-q * torch.log_softmax(v, dim=-1)).sum(-1)  # (B, T)
@@ -73,7 +91,7 @@ def dino_char_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
 
 def dino_char_loss_fused(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
                          valid: torch.Tensor, center: torch.Tensor, teacher_temp: float,
-                         student_temp: float = 0.1) -> torch.Tensor:
+                         student_temp: float = 0.1, group: Group = None) -> torch.Tensor:
     """:func:`dino_char_loss` via the fused CE kernel: one pass over the
     (rows, K) logits instead of several fp32 intermediates.
 
@@ -82,6 +100,9 @@ def dino_char_loss_fused(student_logits: torch.Tensor, teacher_logits: torch.Ten
     pairing — teacher view i distills into student view j != i
     (Dino_loss.py:94-102) — happens inside the kernel by addressing
     (``swap_halves``), so the logits are never sliced or concatenated here.
+    Under ``group`` each rank's rows are [view 1; view 2] of its own samples,
+    so the pairing stays on the rank, as the JAX package's ``shard_map``
+    branch keeps it on the device; what is global is the denominator.
     """
     k = student_logits.shape[-1]
     ce = fused_dino_row_ce(student_logits.reshape(-1, k),
@@ -90,19 +111,21 @@ def dino_char_loss_fused(student_logits: torch.Tensor, teacher_logits: torch.Ten
                            swap_halves=True)
     w = valid.float().reshape(-1)
     w2 = torch.cat([w, w])  # (2B*T,) — slot validity, shared per view
-    denom = w.sum().clamp_min(1.0)
+    denom = _global_count(w, group, "dino_denominator")
     # sum over both row halves = term(t1->s2) + term(t2->s1)
     return (ce * w2).sum() / denom / 2.0
 
 
 def dino_center_update(center: torch.Tensor, teacher_logits: torch.Tensor,
-                       valid: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
+                       valid: torch.Tensor, momentum: float = 0.9,
+                       group: Group = None) -> torch.Tensor:
     """EMA update of the teacher center over valid char slots of both views.
 
     teacher_logits: (2B, T, K), or (2B*T, K) view-stacked rows from
     ``pool_project(flat=True)``; valid: (B, T) — applied to both halves,
     like the reference's concat of the two masked views
-    (Dino_loss.py:133-143). Returns the new (1, K) center.
+    (Dino_loss.py:133-143). Returns the new (1, K) center. Under ``group``
+    the sum and the count are all-reduced (one buffer) before the division.
     """
     k = teacher_logits.shape[-1]
     w = valid.reshape(-1)
@@ -111,8 +134,11 @@ def dino_center_update(center: torch.Tensor, teacher_logits: torch.Tensor,
     # without a fp32 copy of the logits
     total = (teacher_logits.detach().reshape(-1, k) * w2[:, None]).sum(
         0, keepdim=True, dtype=torch.float32)
-    count = w2.float().sum().clamp_min(1.0)
-    return center * momentum + (total / count) * (1.0 - momentum)
+    count = w2.float().sum().reshape(1, 1)
+    if group is not None:
+        both = all_reduce_sum(torch.cat([total, count], dim=1), group, "center")
+        total, count = both[:, :k], both[:, k:]
+    return center * momentum + (total / count.clamp_min(1.0)) * (1.0 - momentum)
 
 
 @torch.no_grad()
@@ -136,17 +162,19 @@ def sinkhorn_knopp_teacher(teacher_output: torch.Tensor, teacher_temp: float,
     return (q * n_total).t()
 
 
-def tf_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int) -> torch.Tensor:
+def tf_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int,
+            group: Group = None) -> torch.Tensor:
     """Teacher-forcing CE (``ccd_tpu/losses/losses.py::tf_loss``): drop the
     last output and the first target, mean over the non-PAD targets.
 
     logits: (N, T, C-1); targets: (N, T) with BOS first. A target id outside
     the classifier's range (PAD is one past it) is clipped for the gather and
-    masked out by ``ignore_index``."""
+    masked out by ``ignore_index``. Under ``group`` the count of non-PAD
+    targets is the global one."""
     out = logits[:, :-1].float()
     tgt = targets[:, 1:]
     mask = (tgt != ignore_index).float()
     logp = torch.log_softmax(out, dim=-1)
     safe = tgt.clamp(0, out.shape[-1] - 1).long()
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / _global_count(mask, group, "tf_denominator")

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ccd_tpu_torch.models.layers import (BatchNorm, Conv2d, ConvTranspose2d, Dense, Dropout,
-                                         init_dense_layers, trunc_normal_)
+                                         init_dense_layers, lecun_normal_, trunc_normal_)
 from ccd_tpu_torch.ops.activations import gelu as _gelu
 
 
@@ -144,7 +144,7 @@ class SegHead(nn.Module):
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Conv2d):
                 fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                trunc_normal_(m.weight, (1.0 / fan_in) ** 0.5, generator)
+                lecun_normal_(m.weight, fan_in, generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, BatchNorm):

@@ -17,21 +17,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# flax's truncated_normal(stddev) truncates at +-2 sigma and divides stddev by
-# the standard deviation of that truncated unit normal, so samples end up with
-# the requested stddev
+from ccd_tpu_torch.parallel.mesh import all_reduce_sum, world
+
+# the standard deviation of a unit normal truncated at +-2 sigma
 _TRUNC_STD_CORRECTION = 0.87962566103423978
 
 
 def trunc_normal_(t: torch.Tensor, std: float,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """In-place normal(0, std) truncated at +-2 sigma (inverse-CDF sampling),
-    the JAX package's ``truncated_normal(stddev=std, lower=-2, upper=2)``."""
+    """In place: a unit normal truncated at +-2 (inverse-CDF sampling), times
+    ``std``. This is JAX's ``nn.initializers.truncated_normal(stddev=std,
+    lower=-2, upper=2)``, which does NOT correct ``std`` for the truncation:
+    the samples' standard deviation is 0.8796 std and they lie within +-2 std."""
     lo = math.erf(-2.0 / math.sqrt(2.0))  # 2 * Phi(-2) - 1
     with torch.no_grad():
         t.uniform_(lo, -lo, generator=generator).erfinv_()
-        t.mul_(std / _TRUNC_STD_CORRECTION * math.sqrt(2.0))
+        t.mul_(std * math.sqrt(2.0))
     return t
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """In place: Flax's ``lecun_normal`` (``variance_scaling(1, "fan_in",
+    "truncated_normal")``), a unit normal truncated at +-2 scaled by
+    ``sqrt(1 / fan_in) / 0.8796``, so that the samples' standard deviation
+    is ``sqrt(1 / fan_in)``."""
+    return trunc_normal_(t, math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION, generator)
 
 
 def keep_mask(x: torch.Tensor, rate: float, shape, generator: Optional[torch.Generator]
@@ -143,12 +154,20 @@ class BatchNorm(nn.Module):
     keeps the unbiased one, so its running statistics drift apart from
     Flax's). Training mode normalises with the batch statistics and updates
     the running ones in place; evaluation mode uses the running ones.
-    Parameter and buffer names are ``nn.BatchNorm2d``'s."""
+    Parameter and buffer names are ``nn.BatchNorm2d``'s.
+
+    ``group`` (a ``torch.distributed`` group, set by
+    :func:`set_batchnorm_group`) makes the batch statistics global, as GSPMD
+    makes them in the JAX step: under a group of more than one process the
+    sums of x and x^2 and the count are all-reduced, differentiably, so the
+    gradient flows through the global statistics, and the running ones
+    update from them. With no group, or a world of one, no collective runs."""
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -159,8 +178,15 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             axes = [0] + list(range(2, x.ndim))
-            mean = x.mean(axes)
-            var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+            if self.group is not None and world(self.group) > 1:
+                c = x.shape[1]
+                count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+                sums = all_reduce_sum(torch.cat([x.sum(axes), (x * x).sum(axes), count]),
+                                      self.group, "batchnorm", differentiable=True)
+                mean, mean_sq = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+            else:
+                mean, mean_sq = x.mean(axes), (x * x).mean(axes)
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
@@ -169,6 +195,14 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.dtype)
+
+
+def set_batchnorm_group(module: nn.Module, group) -> None:
+    """Give every :class:`BatchNorm` under ``module`` the ``torch.distributed``
+    group its batch statistics reduce over (None: this process's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def init_dense_layers(module: nn.Module,

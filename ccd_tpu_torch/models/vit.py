@@ -29,7 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ccd_tpu_torch.models.layers import (Dense, Dropout, LayerNorm, init_dense_layers, keep_mask,
-                                         trunc_normal_)
+                                         lecun_normal_, trunc_normal_)
 from ccd_tpu_torch.ops.activations import gelu as _gelu
 from ccd_tpu_torch.ops.flash_attention import mha_packed, mha_packed_bias
 from ccd_tpu_torch.ops.image import resize_bicubic
@@ -242,7 +242,7 @@ class VisionTransformer(nn.Module):
         trunc_normal_(self.pos_embed, 0.02, generator)
         conv = self.patch_embed.proj
         fan_in = conv.in_channels * conv.kernel_size[0] * conv.kernel_size[1]
-        trunc_normal_(conv.weight, math.sqrt(1.0 / fan_in), generator)
+        lecun_normal_(conv.weight, fan_in, generator)
         nn.init.zeros_(conv.bias)
 
     def _interpolate_pos_encoding(self, npatch: int, h_img: int, w_img: int) -> torch.Tensor:

@@ -14,7 +14,14 @@ Python iteration count, so the step reads nothing back from the device.
 takes raw uint8 (or [0, 1] float) images and augments them on the device
 (``data/augment.py::supervised_augment``) from the state's augmentation
 generator; ``make_multi_finetune_step`` runs K fused steps over a staged
-(K, B, ...) chunk. Single device.
+(K, B, ...) chunk.
+
+Data parallelism (``group``, ``parallel/mesh.py``): every process holds the
+whole recognizer and runs the step on its share of the global batch; its
+loss is its share of the global one (``tf_loss`` over the global count of
+non-PAD targets), one all-reduce sums the ranks' gradients before the
+global-norm clip, so every rank clips and steps alike and the parameters
+stay equal across ranks. The reported loss is the global one.
 """
 
 from __future__ import annotations
@@ -25,13 +32,16 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.profiler import record_function as _phase  # names the step's phases in a trace
 
+from ccd_tpu_torch.checkpoints.torch_io import generator_payload, restore_generators
 from ccd_tpu_torch.data.augment import normalize
 from ccd_tpu_torch.data.random import TorchKey
 from ccd_tpu_torch.losses import tf_loss
 from ccd_tpu_torch.models.recognizer import CCDRecognizer
+from ccd_tpu_torch.parallel.mesh import Group, all_reduce_flat, all_reduce_sum, rank_seed
 from ccd_tpu_torch.schedules import cosine_iter_schedule
 from ccd_tpu_torch.training.optim import (AdamWState, adamw_init, adamw_updates,
                                           clip_gradients_global_norm, weight_decay_mask)
+
 
 
 @dataclass
@@ -43,35 +53,44 @@ class FinetuneState:
     aug_generator: torch.Generator   # draws the fused step's augmentation
 
 
-def init_finetune_state(model: CCDRecognizer, seed: int = 0) -> FinetuneState:
+def init_finetune_state(model: CCDRecognizer, seed: int = 0, process: int = 0) -> FinetuneState:
     """The initial state around a built recognizer: training mode, AdamW
     moments at zero, and the dropout and augmentation generators on the
-    model's device from ``seed`` and ``seed + 1``."""
+    model's device from ``s`` and ``s + 1``, ``s = rank_seed(seed,
+    process)``: the data-parallel ranks draw apart."""
     model.train()
     device = next(model.parameters()).device
+    s = rank_seed(seed, process)
     return FinetuneState(model=model, opt_state=adamw_init(dict(model.named_parameters())),
                          iteration=0,
-                         generator=torch.Generator(device=device).manual_seed(seed),
-                         aug_generator=torch.Generator(device=device).manual_seed(seed + 1))
+                         generator=torch.Generator(device=device).manual_seed(s),
+                         aug_generator=torch.Generator(device=device).manual_seed(s + 1))
 
 
-def finetune_state_payload(state: FinetuneState, best_accuracy: float = 0.0) -> dict:
+def finetune_state_payload(state: FinetuneState, best_accuracy: float = 0.0,
+                           group: Group = None) -> dict:
     """Checkpoint payload mirroring the reference's ``{net, optimizer,
     iteration}`` periodic and best checkpoints (``train_finetune.py:373-389``),
     plus ``best_accuracy`` so that a resumed run keeps its best-checkpoint
-    tracking. The weights are under ``net``, as in a reference checkpoint, so
-    ``builders.load_recognizer_params`` reads them too. The generators are
-    left out and re-seeded on resume, as the JAX package re-derives its key."""
+    tracking, and every rank's generator states (``generator_payload``;
+    under ``group`` every rank calls this). The weights are under ``net``, as
+    in a reference checkpoint, so ``builders.load_recognizer_params`` reads
+    them too."""
     return {"net": state.model.state_dict(),
             "opt_state": {"mu": state.opt_state.mu, "nu": state.opt_state.nu,
                           "count": state.opt_state.count},
-            "iteration": state.iteration, "best_accuracy": float(best_accuracy)}
+            "iteration": state.iteration, "best_accuracy": float(best_accuracy),
+            **generator_payload([state.generator, state.aug_generator], group)}
 
 
-def restore_finetune_state(state: FinetuneState, payload: dict) -> FinetuneState:
+def restore_finetune_state(state: FinetuneState, payload: dict,
+                           group: Group = None) -> FinetuneState:
     """Put a :func:`finetune_state_payload` back into ``state``, in place: the
-    weights, the optimizer moments and count, and the iteration (tensors are
-    copied onto the state's device). The caller reads ``best_accuracy``."""
+    weights, the optimizer moments and count, the iteration (tensors are
+    copied onto the state's device) and this rank's generator states (a
+    payload of another world size than ``group``'s raises ``ValueError``).
+    The caller reads ``best_accuracy``."""
+    restore_generators([state.generator, state.aug_generator], payload, group)
     state.model.load_state_dict(payload["net"], strict=True)
     opt = payload["opt_state"]
     with torch.no_grad():
@@ -83,7 +102,8 @@ def restore_finetune_state(state: FinetuneState, payload: dict) -> FinetuneState
 
 
 def make_finetune_step(*, base_lr: float, min_lr: float, total_iters: int, warmup_iters: int,
-                       weight_decay: float, clip_grad: Optional[float] = None
+                       weight_decay: float, clip_grad: Optional[float] = None,
+                       group: Group = None
                        ) -> Callable[..., Tuple[FinetuneState, Dict[str, object]]]:
     """Build the train step; ``step(state, images, targets)`` with normalised
     images (B, H, W, 3) and padded target ids (B, T) advances ``state`` in
@@ -92,7 +112,8 @@ def make_finetune_step(*, base_lr: float, min_lr: float, total_iters: int, warmu
     The optimizer is ``ccd_tpu/training/optim.py::make_adamw``'s: AdamW with
     the no-decay grouping of ``weight_decay_mask`` (biases and rank-1
     parameters), a new learning rate at every step and a constant weight
-    decay."""
+    decay. ``group``: the data-parallel group (see the module docstring);
+    None: one process, no collective."""
 
     def step(state: FinetuneState, images: torch.Tensor, targets: torch.Tensor
              ) -> Tuple[FinetuneState, Dict[str, object]]:
@@ -107,19 +128,21 @@ def make_finetune_step(*, base_lr: float, min_lr: float, total_iters: int, warmu
         with _phase("forward"):
             logits, _ = model(images, targets, train_mode=True, generator=state.generator)
         with _phase("tf_loss"):
-            loss = tf_loss(logits, targets, model.padding_idx)
+            loss = tf_loss(logits, targets, model.padding_idx, group)
         with _phase("backward"):
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         with torch.no_grad(), _phase("update"):
             # a parameter the loss does not reach (the ViT's segmentation
             # taps) has a zero gradient, not none: AdamW still runs on it
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+            grads = all_reduce_flat(grads, group, "gradients")
             grads = clip_gradients_global_norm(grads, clip_grad)
             updates = adamw_updates(grads, state.opt_state, params, [mask[n] for n in named], lr,
                                     weight_decay)
             torch._foreach_add_(params, updates)
+            loss = all_reduce_sum(loss.detach().reshape(1), group, "losses")[0]
         state.iteration = it + 1
-        return state, {"loss": loss.detach(), "lr": lr}
+        return state, {"loss": loss, "lr": lr}
 
     return step
 

@@ -17,7 +17,18 @@ scalar per flood round). ``make_pretrain_step`` takes the three views and
 theta; ``make_fused_pretrain_step`` takes the raw uint8 images and masks and
 draws the views on the device (``data/augment.py::pretrain_views``) from the
 state's augmentation generator; ``make_multi_pretrain_step`` runs K fused
-steps over K stacked batches. Single device.
+steps over K stacked batches.
+
+Data parallelism (``group``, ``parallel/mesh.py``): every process holds the
+whole state and runs the step on its share of the global batch. Its losses
+are its shares of the global ones (global denominators, ``losses.py``), the
+SegHead's BatchNorm statistics are global, one all-reduce sums the ranks'
+gradients before the per-parameter clip, and the centre's sum and count are
+all-reduced: every rank then clips, steps and updates the teacher and the
+centre alike, and the parameters stay equal across ranks, as on the JAX
+package's one global array. The cross-view CE pairs rows on the rank (each
+rank's rows are [view 1; view 2] of its own samples), so the fused kernel
+runs as on one device. The reported losses are the global ones.
 """
 
 from __future__ import annotations
@@ -29,13 +40,16 @@ import numpy as np
 import torch
 from torch.profiler import record_function as _phase  # names the step's phases in a trace
 
+from ccd_tpu_torch.checkpoints.torch_io import generator_payload, restore_generators
 from ccd_tpu_torch.data.augment import pretrain_views
 from ccd_tpu_torch.data.random import TorchKey
 from ccd_tpu_torch.losses import (dino_char_loss, dino_char_loss_fused,
                                   dino_center_update, seg_loss)
+from ccd_tpu_torch.models.layers import set_batchnorm_group
 from ccd_tpu_torch.models.pretrain import CCDPretrainModel, char_validity_mask
 from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.warp import affine_grid, grid_sample_binary_packed
+from ccd_tpu_torch.parallel.mesh import Group, all_reduce_flat, all_reduce_sum, rank_seed
 from ccd_tpu_torch.schedules import cosine_iter_schedule
 from ccd_tpu_torch.training.optim import (
     AdamWState, MomentumState, OptState, cancel_last_layer_grads, clip_gradients_per_param,
@@ -57,12 +71,14 @@ class PretrainState:
 
 
 def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
-                        seed: int = 0, optimizer: str = "adamw") -> PretrainState:
+                        seed: int = 0, optimizer: str = "adamw",
+                        process: int = 0) -> PretrainState:
     """Build the initial state around two built models: the teacher starts as
     a copy of the student's backbone+head (train.py:109-110), the optimizer
     state and the center at zero. The drop-path generator and the
     augmentation generator live on the models' device and start from
-    ``seed`` and ``seed + 1``.
+    ``s`` and ``s + 1``, ``s = rank_seed(seed, process)``: the data-parallel
+    ranks draw apart.
 
     ``optimizer`` is the configuration's name (``config.optimizer``; empty
     means AdamW, as train.py defaults it): ``adamw``, ``sgd`` or ``lars``
@@ -91,36 +107,41 @@ def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
         student=student, teacher=teacher,
         opt_state=opt_state,
         center=torch.zeros((1, student.out_dim), dtype=torch.float32, device=device),
-        iteration=0, generator=torch.Generator(device=device).manual_seed(seed),
-        aug_generator=torch.Generator(device=device).manual_seed(seed + 1))
+        iteration=0,
+        generator=torch.Generator(device=device).manual_seed(rank_seed(seed, process)),
+        aug_generator=torch.Generator(device=device).manual_seed(rank_seed(seed, process) + 1))
 
 
-def pretrain_state_payload(state: PretrainState) -> dict:
+def pretrain_state_payload(state: PretrainState, group: Group = None) -> dict:
     """Checkpoint payload mirroring the reference's
     {student, teacher, optimizer, epoch/iteration, dino_loss-center}
     (train.py:197-207); the optimizer as AdamW's ``{mu, nu, count}`` or
-    ``{optimizer: 'sgd'|'lars', trace}``. The generators are intentionally
-    excluded and re-seeded on resume, as the JAX package re-derives its key."""
+    ``{optimizer: 'sgd'|'lars', trace}``; and every rank's generator states
+    (:func:`generator_payload`; under ``group`` every rank calls this)."""
     opt = state.opt_state
     opt_payload = ({"mu": opt.mu, "nu": opt.nu, "count": opt.count}
                    if isinstance(opt, AdamWState) else {"optimizer": opt.name, "trace": opt.trace})
     return {"student": state.student.state_dict(),
             "teacher": state.teacher.state_dict(),
             "opt_state": opt_payload,
-            "center": state.center, "iteration": state.iteration}
+            "center": state.center, "iteration": state.iteration,
+            **generator_payload([state.generator, state.aug_generator], group)}
 
 
-def restore_pretrain_state(state: PretrainState, payload: dict) -> PretrainState:
+def restore_pretrain_state(state: PretrainState, payload: dict,
+                           group: Group = None) -> PretrainState:
     """Put a :func:`pretrain_state_payload` back into ``state``, in place:
     both modules, the optimizer state (AdamW's moments and count, or the
-    sgd/lars momentum), the centre and the iteration (tensors are copied onto
-    the state's devices). A checkpoint of another optimizer than the state's
-    raises ``ValueError``."""
+    sgd/lars momentum), the centre, the iteration (tensors are copied onto
+    the state's devices) and this rank's generator states. A checkpoint of
+    another optimizer than the state's, or of another world size than
+    ``group``'s, raises ``ValueError``."""
     opt = payload["opt_state"]
     saved_name = opt.get("optimizer", "adamw")
     if saved_name != state.opt_state.name:
         raise ValueError(f"the checkpoint holds {saved_name} state; this run trains "
                          f"with {state.opt_state.name}")
+    restore_generators([state.generator, state.aug_generator], payload, group)
     state.student.load_state_dict(payload["student"], strict=True)
     state.teacher.load_state_dict(payload["teacher"], strict=True)
     if isinstance(state.opt_state, MomentumState):
@@ -158,6 +179,7 @@ def make_pretrain_step(
     gt_mask_epochs: int = 30,        # epoch threshold for GT vs predicted masks
     num_slots: int = 26,
     use_fused_ce: Optional[bool] = None,
+    group: Group = None,
 ) -> Callable[..., Tuple[PretrainState, Dict[str, object]]]:
     """Build the train step; ``step(state, images, masks, theta)`` advances
     ``state`` in place and returns it with the step's metrics.
@@ -166,6 +188,11 @@ def make_pretrain_step(
     over the (2B*T, out_dim) logits, cross-view pairing by addressing,
     ``pool_project(flat=True)`` rows) instead of the plain chain. ``None`` =
     on for CUDA tensors, off on the CPU.
+
+    ``group``: the data-parallel ``torch.distributed`` group (see the module
+    docstring); the inputs are this rank's share of the global batch and
+    ``global_batch`` the global batch's size. None: one process, no
+    collective.
     """
     temps = np.asarray(teacher_temps, np.float32)
 
@@ -183,6 +210,7 @@ def make_pretrain_step(
         wd = cosine_iter_schedule(it, weight_decay, weight_decay_end, total_iters)
         m = cosine_iter_schedule(it, momentum_teacher, 1.0, total_iters)
         freeze = epoch < freeze_last_layer
+        set_batchnorm_group(student, group)
 
         x = torch.cat([images[:, 1], images[:, 2]], dim=0)  # (2B, H, W, 3)
         grid = affine_grid(theta[:, :2, :].float(), (h, w))
@@ -230,10 +258,11 @@ def make_pretrain_step(
         # warped_gt came from the packed warp above
         with _phase("seg_loss"):
             seg_gt = torch.cat([masks, warped_gt], dim=0)
-            l_seg = seg_loss(seg_logits, seg_gt)
+            l_seg = seg_loss(seg_logits, seg_gt, group)
         with _phase("dino_ce"):
             ce_fn = dino_char_loss_fused if fused else dino_char_loss
-            l_dino = ce_fn(s_logits, t_logits, valid, state.center, teacher_temp, student_temp)
+            l_dino = ce_fn(s_logits, t_logits, valid, state.center, teacher_temp, student_temp,
+                           group=group)
             loss = l_seg + l_dino
 
         named = dict(student.named_parameters())
@@ -244,6 +273,7 @@ def make_pretrain_step(
             # a parameter the loss does not reach (the frozen weight-norm gain)
             # has a zero gradient, not none: the optimizer still runs on it
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+            grads = all_reduce_flat(grads, group, "gradients")
             grads = clip_gradients_per_param(grads, clip_grad)
             grads = cancel_last_layer_grads(names, grads, freeze)
             decay = weight_decay_mask(named, student.norm_last_layer)
@@ -262,11 +292,14 @@ def make_pretrain_step(
             t_named = dict(teacher.named_parameters())
             tracked = [n for n in names if n.startswith(_EMA_BRANCHES)]
             ema_update([t_named[n] for n in tracked], [named[n] for n in tracked], m)
-            state.center = dino_center_update(state.center, t_logits, valid, center_momentum)
+            state.center = dino_center_update(state.center, t_logits, valid, center_momentum,
+                                              group)
+            losses = all_reduce_sum(torch.stack([loss, l_seg, l_dino]).detach(), group,
+                                    "losses")
 
         state.iteration = it + 1
-        metrics = {"loss": loss.detach(), "mask_loss": l_seg.detach(),
-                   "dino_loss": l_dino.detach(), "lr": lr, "wd": wd, "epoch": epoch}
+        metrics = {"loss": losses[0], "mask_loss": losses[1], "dino_loss": losses[2],
+                   "lr": lr, "wd": wd, "epoch": epoch}
         return state, metrics
 
     return step

@@ -3,6 +3,7 @@ trainers' TensorBoard writer."""
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 
@@ -33,6 +34,22 @@ class Logger:
             raise RuntimeError("Invoke Logger.init() first!")
         Logger._root.removeHandler(Logger._handle)
         Logger._handle.close()
+
+
+@contextlib.contextmanager
+def run_log(config, lead: bool = True):
+    """A CLI run's log file, ``<global.workdir>/<global.phase>.txt``, with
+    the configuration at its head; only the ``lead`` process (rank 0 of a
+    data-parallel run) writes one."""
+    if lead:
+        Logger.init(config.global_workdir, config.global_name, config.global_phase)
+        Logger.enable_file()
+        logging.info(config)
+    try:
+        yield
+    finally:
+        if lead:
+            Logger.disable_file()
 
 
 def summary_writer(name: str):

@@ -3,9 +3,10 @@ Dino/modules/utils.py:235-411), as the train CLI uses them, and the
 finetune loop's Averager and Timer (Dino/utils/util.py:5-25,
 Dino/utils/utils.py:118-157).
 
-Cross-process synchronisation is a no-op on a single process and raises
-under an initialised ``torch.distributed`` world of more than one: multi-GPU
-training is not ported yet.
+Cross-process synchronisation sums each meter's count and total over the
+processes (the default ``torch.distributed`` group, as the reference's
+``dist.all_reduce``), so ``global_avg`` covers every rank; it is a no-op on
+a single process. The windowed values stay local, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from collections import defaultdict, deque
 from typing import Dict
 
 import numpy as np
+import torch
+
+from ccd_tpu_torch.parallel.mesh import Group, all_reduce_sum, default_group
 
 
 class SmoothedValue:
@@ -31,12 +35,15 @@ class SmoothedValue:
         self.count += n
         self.total += value * n
 
-    def synchronize_between_processes(self) -> None:
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "SmoothedValue.synchronize_between_processes: multi-process training is "
-                "not ported yet")
+    def synchronize_between_processes(self, group: Group = None) -> None:
+        """Sum count and total over ``group`` (default: the default group;
+        nothing without one)."""
+        group = default_group() if group is None else group
+        if group is None:
+            return
+        t = all_reduce_sum(torch.tensor([self.count, self.total], dtype=torch.float64),
+                           group, "meters")
+        self.count, self.total = int(t[0]), float(t[1])
 
     @property
     def median(self) -> float:
@@ -73,9 +80,9 @@ class MetricLogger:
         for k, v in kwargs.items():
             self.meters[k].update(float(v))
 
-    def synchronize_between_processes(self) -> None:
+    def synchronize_between_processes(self, group: Group = None) -> None:
         for meter in self.meters.values():
-            meter.synchronize_between_processes()
+            meter.synchronize_between_processes(group)
 
     def __getattr__(self, attr: str):
         if attr in self.meters:

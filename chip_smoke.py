@@ -20,9 +20,11 @@ shipped configurations, with random weights from a seed:
     ``init_pretrain_state`` / ``make_fused_pretrain_step`` on rendered words
     as uint8 and their masks, first with ground-truth masks, then with
     self-predicted ones;
-  * the ``train`` CLI (``python -m ccd_tpu_torch.cli.train``) on the same
-    configuration over a synthetic LMDB: 16 iterations in two dispatches of
-    8, a checkpoint, and a second run that resumes from it;
+  * the ``train`` CLI on the same configuration over a synthetic LMDB, under
+    ``torchrun --nproc_per_node 1`` (one process over NCCL): 16 iterations
+    in two dispatches of 8, a checkpoint written by rank 0, and a second
+    run that resumes from it; then as one plain process with 2 loader
+    threads;
   * the card's calibration (``python -m ccd_tpu_torch.cli.calibrate``, in
     process, fewer calls per row): matrix-product and copy rates, and the
     folded attention forward and backward (K1b) at (768, 256, 64);
@@ -40,9 +42,10 @@ shipped configurations, with random weights from a seed:
     at severities 1, 2, 3, 4 and 6 (batch 64) and ``abinet_augment`` (batch
     288), each without a host synchronisation and equal to the same chain run
     on the CPU with the card run's draws;
-  * the ``train_finetune`` CLI on the shipped configuration over synthetic
-    LMDBs, its backbone handed over from the ``train`` CLI's checkpoint: 16
-    iterations with evaluations, a checkpoint, and a resume to 32. Both CLIs'
+  * the ``train_finetune`` CLI under ``torchrun --nproc_per_node 1`` on the
+    shipped configuration over synthetic LMDBs, its backbone handed over
+    from the ``train`` CLI's checkpoint: 16 iterations with evaluations
+    through the sharded runner, a checkpoint, and a resume to 32. Both CLIs'
     TensorBoard event files are read back where ``tensorboard`` is installed;
   * the learnability probe (``cli.overfit_probe``, in process): 32 rendered
     words, 160 finetune steps, then a greedy decode of the same images, on
@@ -64,6 +67,10 @@ shipped configurations, with random weights from a seed:
     step; the peak with and without);
   * ``get_last_selfattention`` of the evaluation model at batch 288, against
     the last block's attention written out here;
+  * data parallelism at world size 1: the ViT-Small pretraining step and
+    the finetune step through a one-process NCCL group, in turns with the
+    same steps without it from one state and one input: losses and first
+    moments held, the collectives' calls, bytes and device time;
   * the C++ LMDB reader (``ccd_tpu_torch/native/``, built by ``g++`` at
     first use) against the Python one over the ``train`` CLI's 1024 words,
     byte for byte; the ``train`` CLI reads through it;
@@ -128,6 +135,7 @@ from ccd_tpu_torch.ops.bilateral import (bilateral_filter_fused, bilateral_filte
                                          kernel_attributes as bilateral_attributes)
 from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.kmeans_mask import kmeans_foreground_mask
+from ccd_tpu_torch.parallel.mesh import collective_counts, reset_collective_counts
 from ccd_tpu_torch.ops.flash_attention import (backward_kernel_attributes, flash_attention,
                                                flash_attention_bwd, flash_attention_bwd_plain,
                                                flash_attention_fwd, flash_attention_plain,
@@ -191,6 +199,13 @@ FT_PHASES = ("augment", "forward", "tf_loss", "backward", "update")
 # evaluations every 8 iterations over the CLI's 288-word test LMDB
 FT_CLI_WORDS, FT_CLI_ITERS, FT_CLI_RESUMED_ITERS, FT_CLI_EVAL_ITERS = 1152, 16, 32, 8
 CALIBRATE_ITERS = 10                   # calls per calibration row (the CLI's default is 50)
+# data parallelism at world size 1 over NCCL: each step (pretrain, finetune)
+# DP_STEPS times with the group and DP_STEPS times without, in turns, from one
+# state and one input
+DP_STEPS = 3
+# the CLIs' data-parallel launcher: torchrun, one process (the card machine has one GPU)
+TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
+TORCHRUN_LINE = "data parallel: 1 process(es), rank 0, nccl group"
 # the learnability probe at the JAX tool's size (tools/overfit_probe.py: 32
 # words, 160 steps), first on its own model (vit_micro, fp32), then at full
 # width; the JAX package's CPU run of the same probe read 32 of 32 words
@@ -866,11 +881,10 @@ def decode_with_plain_attention(model, images: torch.Tensor) -> torch.Tensor:
     return model.decoder.decode_greedy(model.encoder(vit.norm(tokens)))
 
 
-def device_busy(fn):
-    """(wall ms, summed device-kernel ms, top kernels, device-kernel launches)
-    of one call under torch.profiler; the kernel sum is None when the trace
-    holds no device time. Named ranges (the step's phases) are not kernels
-    and are left out."""
+def profiled_kernels(fn):
+    """(wall ms, [(device ms, calls, kernel name)]) of one call under
+    torch.profiler, device kernels only: named ranges (the step's phases)
+    are not kernels and are left out."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -889,9 +903,16 @@ def device_busy(fn):
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if us > 0:
             rows.append((us / 1e3, ev.count, ev.key))
+    return wall_ms, sorted(rows, reverse=True)
+
+
+def device_busy(fn):
+    """(wall ms, summed device-kernel ms, top kernels, device-kernel launches)
+    of one call under torch.profiler; the kernel sum is None when the trace
+    holds no device time."""
+    wall_ms, rows = profiled_kernels(fn)
     if not rows:
         return wall_ms, None, [], 0
-    rows.sort(reverse=True)
     top = [{"kernel": k[:60], "ms": ms, "calls": n} for ms, n, k in rows[:8]]
     return wall_ms, sum(r[0] for r in rows), top, sum(r[1] for r in rows)
 
@@ -1917,6 +1938,140 @@ def remat_phase(card: str) -> dict:
     return remat["launches"]
 
 
+def nccl_world_of_one():
+    """A one-process NCCL group over a TCP store on 127.0.0.1 at a free port:
+    the group ``torchrun --nproc_per_node 1`` gives the CLIs, made in this
+    process."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=1, rank=0)
+    return torch.distributed.group.WORLD
+
+
+def steps_with_and_without_group(what: str, run, group_step, lone_step, state, twin, moments,
+                                  launches_per_step: dict) -> dict:
+    """DP_STEPS steps through the group from ``state`` and DP_STEPS from its
+    copy ``twin`` without one, in turns, on the same input (``run(step,
+    st)`` -> (losses, launches, ms)): the group's launches and collectives
+    (counted over its steps alone), the losses and the first moments held to the
+    steps without the group at the step-against-step tolerances, each
+    side's ms, and one more step of each under the profiler: busy ms and the
+    collectives' kernels."""
+    reset_collective_counts()
+    launches = collections.Counter()
+    grouped, grouped_ms, lone, lone_ms = [], [], [], []
+    for _ in range(DP_STEPS):
+        losses, made, ms = run(group_step, state)
+        if made != launches_per_step:
+            raise SystemExit(f"{what}: a step through the group launched {made}, expected "
+                             f"{launches_per_step}")
+        launches.update(made)
+        grouped.append(losses)
+        grouped_ms.append(ms)
+        losses, _, ms = run(lone_step, twin)
+        lone.append(losses)
+        lone_ms.append(ms)
+    launches, collectives = dict(launches), collective_counts()
+    loss_rel = max(abs(a - b) / abs(b) for g, l in zip(grouped, lone) for a, b in zip(g, l))
+    mu = torch.cat([t.float().flatten() for t in moments(state)])
+    mu_lone = torch.cat([t.float().flatten() for t in moments(twin)])
+    grad_rel = float((mu - mu_lone).norm() / mu_lone.norm())
+    if not loss_rel <= TOL_STEP_LOSS_REL or not grad_rel <= TOL_STEP_GRAD_REL:
+        raise SystemExit(f"{what}: the steps through the group and without it differ: losses "
+                         f"{loss_rel} (tol {TOL_STEP_LOSS_REL}), first moments {grad_rel} in "
+                         f"L2 (tol {TOL_STEP_GRAD_REL})")
+    wall_g, rows_g = profiled_kernels(lambda: run(group_step, state))
+    wall_l, rows_l = profiled_kernels(lambda: run(lone_step, twin))
+    nccl = [{"kernel": k[:80], "ms": ms, "calls": n} for ms, n, k in rows_g
+            if "nccl" in k.lower()]
+    per_step = {k: {"calls": v["calls"] / DP_STEPS, "bytes": v["bytes"] / DP_STEPS}
+                for k, v in sorted(collectives.items())}
+    return {"steps": DP_STEPS, "kernel_launches": launches, "losses_with_group": grouped,
+            "losses_without_group": lone, "loss_rel_diff": loss_rel,
+            "first_moment_rel_l2_diff": grad_rel, "tol_step_loss_rel": TOL_STEP_LOSS_REL,
+            "tol_step_grad_rel": TOL_STEP_GRAD_REL,
+            "step_ms_with_group": grouped_ms, "step_ms_without_group": lone_ms,
+            "step_ms_median_with_group": statistics.median(grouped_ms[1:]),
+            "step_ms_median_without_group": statistics.median(lone_ms[1:]),
+            "profiled_step_wall_ms": {"with_group": wall_g, "without_group": wall_l},
+            "profiled_device_busy_ms": {"with_group": sum(r[0] for r in rows_g),
+                                        "without_group": sum(r[0] for r in rows_l)},
+            "collectives_per_step": per_step,
+            "collective_bytes_per_step": sum(v["bytes"] for v in per_step.values()),
+            "nccl_kernels_profiled_step": nccl,
+            "nccl_device_ms_profiled_step": sum(r["ms"] for r in nccl) if nccl else None}
+
+
+def data_parallel_phase(card: str) -> dict:
+    """Data parallelism at world size 1 (the card machine has one GPU): the
+    full-width ViT-Small pretraining step (``ccd_pretrain_vit_small.yaml``,
+    batch 64, ``out_dim`` 65536, bf16, severity 5) and the finetune step
+    (``ccd_finetune_ard.yaml``, batch 288) through a one-process NCCL group,
+    each beside the same step without a group from one state and one input.
+    (The CLIs run under torchrun in the train_cli and train_finetune_cli
+    phases.) Returns the kernels' launches of the steps through the group."""
+    t0 = time.time()
+    group = nccl_world_of_one()
+    try:
+        config, state = vit_small_pretrain_state()
+        twin = pretrain_twin(state)
+        raw, masks = pretrain_inputs(PRETRAIN_BATCH, seed=987)
+        schedule = pretrain_schedule(config, PRETRAIN_BATCH)
+
+        def run(step, st):
+            m, made, ms = run_pretrain_step(step, st, raw, masks, "data_parallel pretrain")
+            return [m[k] for k in ("loss", "mask_loss", "dino_loss")], made, ms
+
+        pretrain = steps_with_and_without_group(
+            "data_parallel pretrain", run,
+            make_fused_pretrain_step(gt_mask_epochs=30, group=group, **schedule),
+            make_fused_pretrain_step(gt_mask_epochs=30, **schedule), state, twin,
+            optimizer_moments, LAUNCHES_PER_STEP)
+        del state, twin
+        torch.cuda.empty_cache()
+
+        ft_config = Config(CONFIG)
+        model, _ = build_recognizer(ft_config, device="cuda",
+                                    generator=torch.Generator().manual_seed(SEED))
+        ft_state = init_finetune_state(model, seed=SEED)
+        ft_twin = FinetuneState(model=copy.deepcopy(model),
+                                opt_state=copy.deepcopy(ft_state.opt_state), iteration=0,
+                                generator=torch.Generator(device="cuda"),
+                                aug_generator=torch.Generator(device="cuda"))
+        ft_twin.generator.set_state(ft_state.generator.get_state())
+        ft_twin.aug_generator.set_state(ft_state.aug_generator.get_state())
+        raw_ft, targets = finetune_inputs(BATCH, seed=987,
+                                          max_seq_len=ft_config.decoder_max_seq_len)
+        ft_schedule = dict(aug_fn=supervised_augment, base_lr=float(ft_config.lr),
+                           min_lr=float(ft_config.min_lr), total_iters=1000, warmup_iters=3,
+                           weight_decay=float(ft_config.weight_decay),
+                           clip_grad=ft_config.clip_grad)
+
+        def run_ft(step, st):
+            loss, made, ms = run_finetune_step(step, st, raw_ft, targets, "data_parallel finetune")
+            return [loss], made, ms
+
+        finetune = steps_with_and_without_group(
+            "data_parallel finetune", run_ft,
+            make_fused_finetune_step(group=group, **ft_schedule),
+            make_fused_finetune_step(**ft_schedule), ft_state, ft_twin,
+            lambda st: st.opt_state.mu, FT_LAUNCHES_PER_STEP)
+        del model, ft_state, ft_twin
+        torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    emit({"phase": "data_parallel", "gpu": card, "world_size": 1, "backend": "nccl",
+          "pretrain": dict(pretrain, config="ccd_pretrain_vit_small.yaml",
+                           batch=PRETRAIN_BATCH),
+          "finetune": dict(finetune, config="ccd_finetune_ard.yaml", batch=BATCH),
+          "seconds": time.time() - t0})
+    return {"data_parallel_pretrain": pretrain["kernel_launches"],
+            "data_parallel_finetune": finetune["kernel_launches"]}
+
+
 def native_reader_phase(card: str) -> None:
     """The train CLI's synthetic LMDB (CLI_WORDS words with masks, seed 3, as
     ``--synthetic`` writes it) read key by key through the C++ reader,
@@ -2083,13 +2238,15 @@ def tensorboard_report(log_dir: str, log: str, want: set) -> dict:
 
 
 def train_cli_phase(card: str, keep_dir: str) -> str:
-    """``python -m ccd_tpu_torch.cli.train`` on the full ViT-Small pretraining
+    """``ccd_tpu_torch.cli.train`` on the full ViT-Small pretraining
     configuration over a synthetic LMDB of rendered words with masks (written
-    by the CLI's ``--synthetic`` into a temporary directory): CLI_ITERS
-    iterations (dispatches of 8), a checkpoint, then a second run that
-    resumes from it and goes on to CLI_RESUMED_ITERS; then, in a directory of
-    its own, CLI_RESUMED_ITERS iterations with 2 loader threads instead of
-    the configuration's 16 (the threads share the interpreter lock with the
+    by the CLI's ``--synthetic`` into a temporary directory): under torchrun
+    (one process over NCCL, the data-parallel path), CLI_ITERS iterations
+    (dispatches of 8) and a checkpoint written by rank 0, then a second run
+    that resumes from it and goes on to CLI_RESUMED_ITERS; then, in a
+    directory of its own and as one plain process (``python -m``),
+    CLI_RESUMED_ITERS iterations with 2 loader threads instead of the
+    configuration's 16 (the threads share the interpreter lock with the
     loop that issues the step's launches). The configuration is the shipped
     one but for ``show_iters`` = 8, so that each dispatch is logged and
     checked for a NaN loss. Each run's rate after its first dispatch comes
@@ -2111,9 +2268,9 @@ def train_cli_phase(card: str, keep_dir: str) -> str:
                              r"it (\d+) epoch \d+ loss (\S+) \(mask")
     runs = []
     try:
-        for workers, max_iters, resumes in ((None, CLI_ITERS, False),
-                                            (None, CLI_RESUMED_ITERS, True),
-                                            (2, CLI_RESUMED_ITERS, False)):
+        for workers, max_iters, resumes, launcher in (
+                (None, CLI_ITERS, False, TORCHRUN), (None, CLI_RESUMED_ITERS, True, TORCHRUN),
+                (2, CLI_RESUMED_ITERS, False, [sys.executable])):
             run_dir = os.path.join(tmp, f"loader_threads_{workers or 'as_configured'}")
             os.makedirs(run_dir, exist_ok=True)
             run_cfg = copy.deepcopy(cfg)
@@ -2122,8 +2279,8 @@ def train_cli_phase(card: str, keep_dir: str) -> str:
             cfg_path = os.path.join(run_dir, "pretrain_vit_small.yaml")
             with open(cfg_path, "w") as f:
                 yaml.safe_dump(run_cfg, f)
-            cmd = [sys.executable, "-m", "ccd_tpu_torch.cli.train", "-c", cfg_path,
-                   "--synthetic", str(CLI_WORDS), "--max_iters", str(max_iters)]
+            cmd = launcher + ["-m", "ccd_tpu_torch.cli.train", "-c", cfg_path,
+                              "--synthetic", str(CLI_WORDS), "--max_iters", str(max_iters)]
             t0 = time.time()
             proc = subprocess.run(cmd, cwd=run_dir, env=env, capture_output=True, text=True,
                                   timeout=600)
@@ -2145,8 +2302,15 @@ def train_cli_phase(card: str, keep_dir: str) -> str:
             if reader is None or reader.group(1) != "native":
                 raise SystemExit(f"train CLI: the dataset did not read through the native "
                                  f"LMDB reader ({reader and reader.group(0)}):\n{log[-4000:]}")
+            torchrun = launcher is TORCHRUN
+            world = torch.load(ckpt, map_location="cpu", weights_only=True)["world_size"]
+            if (TORCHRUN_LINE in log) != torchrun or world != 1:
+                raise SystemExit(f"train CLI: launched by {'torchrun' if torchrun else 'python'}"
+                                 f" but its log and checkpoint (world size {world}) say "
+                                 f"otherwise:\n{log[-4000:]}")
             (t_first, it_first, _), (t_last, it_last, _) = logged[0], logged[-1]
-            runs.append({"loader_threads": workers or int(cfg["dataset"]["num_workers"]),
+            runs.append({"launcher": "torchrun --nproc_per_node 1" if torchrun else "python",
+                         "loader_threads": workers or int(cfg["dataset"]["num_workers"]),
                          "lmdb_reader": reader.group(1),
                          "tensorboard": tensorboard_report(
                              os.path.join(run_dir, "tensorboard", cfg["global"]["name"]), log,
@@ -2168,7 +2332,9 @@ def train_cli_phase(card: str, keep_dir: str) -> str:
 
 
 def train_finetune_cli_phase(card: str, pretrain_checkpoint: str) -> dict:
-    """``python -m ccd_tpu_torch.cli.train_finetune`` on the shipped
+    """``ccd_tpu_torch.cli.train_finetune`` under torchrun (one process over
+    NCCL: the data-parallel path, each evaluation through the sharded
+    runner, checkpoints from rank 0) on the shipped
     ``ccd_finetune_ard.yaml`` over synthetic LMDBs (the CLI's ``--synthetic``:
     FT_CLI_WORDS training words, a quarter as many test words), its backbone
     handed over from ``pretrain_checkpoint`` (the ``train`` CLI's teacher):
@@ -2197,8 +2363,8 @@ def train_finetune_cli_phase(card: str, pretrain_checkpoint: str) -> dict:
             yaml.safe_dump(cfg, f)
         run_dir = os.path.join(cfg["output_dir"], cfg["global"]["name"])
         for max_iters, resumes in ((FT_CLI_ITERS, False), (FT_CLI_RESUMED_ITERS, True)):
-            cmd = [sys.executable, "-m", "ccd_tpu_torch.cli.train_finetune", "-c", cfg_path,
-                   "--synthetic", str(FT_CLI_WORDS), "--max_iters", str(max_iters)]
+            cmd = TORCHRUN + ["-m", "ccd_tpu_torch.cli.train_finetune", "-c", cfg_path,
+                              "--synthetic", str(FT_CLI_WORDS), "--max_iters", str(max_iters)]
             t0 = time.time()
             proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
                                   timeout=600)
@@ -2221,10 +2387,11 @@ def train_finetune_cli_phase(card: str, pretrain_checkpoint: str) -> dict:
                                                                  else 0) \
                     or not all(np.isfinite(losses)) or not accuracy \
                     or not os.path.isfile(ckpt) or not os.path.isfile(best) \
-                    or resumed != resumes or not handed_over:
+                    or resumed != resumes or not handed_over or TORCHRUN_LINE not in log:
                 raise SystemExit(f"train_finetune CLI to {max_iters}: no rate, a missing or "
                                  f"non-finite loss, no evaluation, checkpoint or best payload, "
-                                 f"a wrong resume ({resumed}) or no hand-off:\n{log[-4000:]}")
+                                 f"a wrong resume ({resumed}), no hand-off or not rank 0 of 1:\n"
+                                 f"{log[-4000:]}")
             runs.append({"tensorboard": tensorboard_report(
                              os.path.join(tmp, "tensorboard", cfg["global"]["name"]), log,
                              FINETUNE_TAGS),
@@ -2236,6 +2403,7 @@ def train_finetune_cli_phase(card: str, pretrain_checkpoint: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result = {"phase": "train_finetune_cli", "gpu": card, "config": "ccd_finetune_ard.yaml",
+              "launcher": "torchrun --nproc_per_node 1",
               "words": FT_CLI_WORDS, "test_words": FT_CLI_WORDS // 4, "batch": batch,
               "steps_per_dispatch": k, "eval_iters": FT_CLI_EVAL_ITERS,
               "pretrain_checkpoint": os.path.basename(pretrain_checkpoint), "runs": runs}
@@ -2870,6 +3038,7 @@ def main() -> None:
     opt_launches = optimizers_phase(card)      # counts set to 0 before each optimizer's run
     remat_launches = remat_phase(card)         # and before each of its two runs
     attention_launches = last_selfattention_phase(card)
+    dp_launches = data_parallel_phase(card)   # counts set to 0 before each of its steps
     augmentation_chains(card)
     native_reader_phase(card)
     keep = tempfile.mkdtemp(prefix="ccd_chip_smoke_keep_")
@@ -2893,7 +3062,7 @@ def main() -> None:
     by_path = {"pretrain": train_launches, "finetune": ft_launches,
                "pretrain_vit_base": base_launches, "pretrain_severity_2": sev2_launches,
                "finetune_abinet": abinet_launches, "pretrain_sgd_lars": opt_launches,
-               "pretrain_remat": remat_launches}
+               "pretrain_remat": remat_launches, **dp_launches}
     k1_fwd = {"evaluation": eval_launches, "calibrate": calib_launches["K1-fwd"],
               "last_selfattention": attention_launches,
               **{path: n["K1-fwd"] for path, n in by_path.items()},

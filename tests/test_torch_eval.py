@@ -146,12 +146,23 @@ def test_editdistance_and_accuracy_copies_agree():
 
 
 def test_accuracy_sync_is_single_process_only(monkeypatch):
-    import torch.distributed as dist
+    """One process: a no-op. Under a group (data parallelism) the counters
+    are summed over the ranks and the inference time is their largest: here
+    through stand-in collectives for a second rank that counted the same
+    words and took 3 s (two real gloo processes:
+    tests/test_torch_parallel_cli.py)."""
+    import ccd_tpu_torch.evaluation.accuracy as accuracy_mod
     acc = TextAccuracy()
-    acc.update(["ab"], ["ab"])
+    acc.update(["ab", "cd"], ["ab", "ce"])
+    acc.inference_time = 1.0
+    before = acc.result()
     acc.synchronize_between_processes()  # one process: no-op
-    assert acc.result()["cwr"] == 1.0
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError):
-        acc.synchronize_between_processes()
+    assert acc.result() == before
+    monkeypatch.setattr(accuracy_mod, "all_reduce_sum", lambda t, group, what: t.mul_(2))
+    monkeypatch.setattr(accuracy_mod, "all_reduce_max",
+                        lambda t, group, what: t.clamp_min_(3.0))
+    acc.synchronize_between_processes(group=object())
+    after = acc.result()
+    assert after["words"] == 4 and after["ted"] == 2 * before["ted"]
+    assert after["cwr"] == before["cwr"] == 0.5 and after["ccr"] == before["ccr"]
+    assert after["time"] == 3.0

@@ -80,6 +80,30 @@ def test_train_finetune_cli_trains_evaluates_checkpoints_and_resumes(tmp_path, m
     assert (tmp_path / "workdir" / "smoke_finetune" / "train.txt").is_file()
 
 
+@pytest.mark.parametrize("mesh,error,words", [
+    ({"model_parallel": 2}, NotImplementedError, "ROADMAP M11b"),
+    ({"num_devices": 2}, ValueError, "num_devices=2 > available 1"),
+    ({"num_devices": 0}, ValueError, "processes would have no data")],
+    ids=["model_parallel_2", "more_devices", "fewer_devices"])
+def test_train_finetune_cli_refuses_a_mesh_it_cannot_lay(tmp_path, monkeypatch, mesh, error,
+                                                         words):
+    """The JAX CLI lays a data mesh over ``mesh.num_devices``
+    (train_finetune.py:244): a number other than the world size (1 here)
+    is refused, and so is ``mesh.model_parallel`` above 1, before anything
+    is built."""
+    import yaml
+    monkeypatch.chdir(tmp_path)
+    with open(SMOKE) as f:
+        cfg = yaml.safe_load(f)
+    cfg["mesh"] = mesh
+    path = tmp_path / "finetune.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(error, match=words):
+        train_finetune.main(["-c", str(path), "--synthetic", "8", "--max_iters", "1",
+                             "--device", "cpu"])
+    assert not (tmp_path / "saved_models").exists()
+
+
 def _abinet_config(tmp_path) -> str:
     """The smoke configuration with ``dataset.use_abi`` (the ABINet-style
     chain) and an evaluation every 2 iterations."""

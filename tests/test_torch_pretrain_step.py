@@ -251,7 +251,9 @@ def test_last_layer_moves_once_unfrozen(runs):
 def test_state_payload_names_what_a_checkpoint_needs(runs):
     _, out, _, _ = runs
     payload = pretrain_state_payload(out[True]["state"])
-    assert set(payload) == {"student", "teacher", "opt_state", "center", "iteration"}
+    assert set(payload) == {"student", "teacher", "opt_state", "center", "iteration",
+                            "world_size", "generators"}
+    assert payload["world_size"] == 1 and len(payload["generators"]) == 1
     assert payload["iteration"] == N_STEPS and payload["opt_state"]["count"] == N_STEPS
     assert len(payload["opt_state"]["mu"]) == len(list(out[True]["state"].student.parameters()))
     assert not any(k.startswith("segmentation") for k in payload["teacher"])

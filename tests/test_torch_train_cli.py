@@ -237,6 +237,32 @@ def test_train_cli_refuses_an_optimizer_it_has_not_ported(tmp_path, monkeypatch,
         assert "resuming from checkpoint step 1" in log
 
 
+MESH_REFUSALS = [({"model_parallel": 2}, NotImplementedError, "ROADMAP M11b"),
+                 ({"num_devices": 2}, ValueError, "num_devices=2 > available 1"),
+                 ({"num_devices": 0}, ValueError, "processes would have no data")]
+
+
+@pytest.mark.parametrize("mesh,error,words", MESH_REFUSALS,
+                         ids=["model_parallel_2", "more_devices", "fewer_devices"])
+def test_train_cli_refuses_a_mesh_it_cannot_lay(tmp_path, monkeypatch, mesh, error, words):
+    """``mesh.model_parallel`` above 1 (tensor parallelism, not ported) and
+    a ``mesh.num_devices`` other than the world size (1 here, one process)
+    are refused before anything is built, as the JAX CLI's ``pretrain_mesh``
+    refuses a mesh it cannot lay (tests/test_train_steps.py)."""
+    import yaml
+
+    from ccd_tpu_torch.cli.train import main
+    monkeypatch.chdir(tmp_path)
+    with open(SMOKE) as f:
+        cfg = yaml.safe_load(f)
+    cfg["mesh"] = mesh
+    path = tmp_path / "pretrain.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(error, match=words):
+        main(["-c", str(path), "--synthetic", "8", "--max_iters", "1", "--device", "cpu"])
+    assert not (tmp_path / "saved_models").exists()
+
+
 def test_init_pretrain_state_refuses_an_optimizer_it_has_not_ported():
     """An optimizer name ``make_optimizer`` does not know raises its
     ``ValueError``; sgd and lars build their momentum. A student with
