@@ -18,7 +18,9 @@ Data parallelism (``group``): every rank calls ``save``/``save_payload``
 with the same payload, rank 0 alone writes, and every rank waits at a
 barrier until the file is there; every rank reads. A payload carries every
 rank's generator states (:func:`generator_payload`), and a resume restores
-each rank's own (:func:`restore_generators`).
+each rank's own (:func:`restore_generators`). Under tensor parallelism the
+ranks of one model group draw alike, and the generators travel over the
+data group: the states are those of the data ranks.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ def _to_cpu(tree: Any) -> Any:
 
 def generator_payload(generators, group: Group = None) -> dict:
     """``{"world_size", "generators": [rank 0's states, rank 1's, ...]}``:
-    every rank's states of ``generators``, gathered over ``group`` (every
-    rank calls this)."""
+    every rank's states of ``generators``, gathered over ``group``, the data
+    group (every rank calls this); ``world_size`` counts its ranks."""
     mine = torch.cat([g.get_state() for g in generators])
     sizes = [g.get_state().numel() for g in generators]
     every = all_gather_bytes(mine, group, "generator_states")
@@ -56,15 +58,17 @@ def generator_payload(generators, group: Group = None) -> dict:
 
 
 def restore_generators(generators, payload: dict, group: Group = None) -> None:
-    """This rank's states out of a :func:`generator_payload`. A payload of
-    another world size is refused; one without states (an older checkpoint)
-    leaves the generators as they are."""
+    """This rank's states out of a :func:`generator_payload` gathered over
+    the data group ``group``. A payload of another number of data ranks is
+    refused; one without states (an older checkpoint) leaves the generators
+    as they are."""
     if "generators" not in payload:
         return
     if int(payload["world_size"]) != world(group):
-        raise ValueError(f"the checkpoint was written by {payload['world_size']} processes and "
-                         f"this run has {world(group)}: resuming at another world size is not "
-                         "supported (each rank's data shard and generators would change)")
+        raise ValueError(f"the checkpoint was written by {payload['world_size']} data ranks and "
+                         f"this run has {world(group)}: resuming at another world size (number "
+                         "of data ranks) is not supported (each rank's data shard and "
+                         "generators would change)")
     for g, saved in zip(generators, payload["generators"][rank(group)]):
         g.set_state(saved.cpu().contiguous())
 

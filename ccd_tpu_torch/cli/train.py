@@ -10,13 +10,17 @@ teacher → centre EMA (``make_multi_pretrain_step``, K iterations per staged
 chunk).
 
 One process, or one process per GPU under ``torchrun`` (data parallelism,
-``parallel/mesh.py``): every rank reads its shard of the data, the global
-batch is ``batch_size_per_gpu`` x the world size (it sets the learning
-rate, the warm-up and the virtual epochs, as in the JAX CLI), the step sums
-the ranks' gradients, and rank 0 alone writes checkpoints, the log and
-TensorBoard. ``mesh.num_devices`` must be null or the world size;
-``mesh.model_parallel`` above 1 (tensor parallelism) is refused until
-ROADMAP M11b.
+``parallel/mesh.py``): every data rank reads its shard of the data, the
+global batch is ``batch_size_per_gpu`` x the number of data ranks (it sets
+the learning rate, the warm-up and the virtual epochs, as in the JAX CLI),
+the step sums the ranks' gradients, and rank 0 alone writes checkpoints,
+the log and TensorBoard. ``mesh.num_devices`` must be null or the world
+size. ``mesh.model_parallel`` = mp > 1 splits the DINO head's last layer,
+its optimizer state and the centre over groups of mp consecutive ranks
+(tensor parallelism): the world is then world / mp data ranks of mp model
+ranks each, the ranks of a model group read the same samples, and a
+checkpoint holds the full tensors (it resumes at any mp with as many data
+ranks).
 
 Usage:
   python -m ccd_tpu_torch.cli.train -c ccd_tpu_torch/configs/ccd_pretrain_vit_small.yaml \
@@ -77,12 +81,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     config.override(arch=args.arch, batch_size_per_gpu=args.batch_size_per_gpu,
                     training_epochs=args.epochs, lr=args.lr, seed=args.seed)
     with distributed_run(resolve_device(args.device)) as device:
-        group = pretrain_mesh(config.mesh_num_devices, config.mesh_model_parallel)
-        with run_log(config, lead=rank(group) == 0):
-            return _run(config, args, device, group)
+        layout = pretrain_mesh(config.mesh_num_devices, config.mesh_model_parallel)
+        with run_log(config, lead=rank(layout.world) == 0):
+            return _run(config, args, device, layout)
 
 
-def _run(config, args, device, group) -> dict:
+def _run(config, args, device, layout) -> dict:
     tmp = None
     try:
         if args.synthetic:
@@ -96,13 +100,13 @@ def _run(config, args, device, group) -> dict:
             config.dataset_train_roots = [root]
             config.dataset_mask_path = mask_root
             config.dataset_mask = True
-        return _train(config, args, device, group)
+        return _train(config, args, device, layout)
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _train(config, args, device, group) -> dict:
+def _train(config, args, device, layout) -> dict:
     import numpy as np
     import torch
 
@@ -116,12 +120,14 @@ def _train(config, args, device, group) -> dict:
     from ccd_tpu_torch.training.pretrain_step import (init_pretrain_state,
                                                       make_multi_pretrain_step,
                                                       pretrain_state_payload,
-                                                      restore_pretrain_state)
+                                                      restore_pretrain_state,
+                                                      shard_pretrain_state)
     from ccd_tpu_torch.utils import MetricLogger
     from ccd_tpu_torch.utils.logging import summary_writer
 
     # ------------------------------------------------------------ data
-    me, n_proc = rank(group), world(group)
+    group, me, n_proc = layout.world, rank(layout.world), world(layout.world)
+    n_data = layout.data_size
     batch_size = int(config.batch_size_per_gpu or 64)
     h, w = int(config.dataset_image_height), int(config.dataset_image_width)
     train_ds = build_dataset(
@@ -131,24 +137,29 @@ def _train(config, args, device, group) -> dict:
         data_portion=float(config.dataset_portion or 1.0))
     loader = DataLoader(train_ds, batch_size=batch_size, shuffle=True, drop_last=True,
                         num_workers=int(config.dataset_num_workers or 8),
-                        process_index=me, process_count=n_proc)
+                        process_index=layout.data_index, process_count=n_data)
     config.iter_num = len(loader)
     logging.info(f"each epoch iteration: {config.iter_num}")
     logging.info(f"LMDB reader: {train_ds.reader}")
     logging.info(f"data parallel: {n_proc} process(es), rank {me}, "
                  f"{'no process group' if group is None else backend(group) + ' group'}, "
-                 f"global batch {batch_size * n_proc}")
+                 f"global batch {batch_size * n_data}")
+    if layout.model is not None:
+        logging.info(f"tensor parallel: {n_data} data rank(s) x {layout.model_size} model "
+                     f"ranks, data rank {layout.data_index}, model rank {layout.model_index}")
 
     # ------------------------------------------------------------ models
     seed = int(config.seed or 0)
     student, teacher = build_pretrain_models(
         config, device=device, generator=torch.Generator().manual_seed(seed))
     state = init_pretrain_state(student, teacher, seed=seed,
-                                optimizer=str(config.optimizer or "adamw"), process=me)
+                                optimizer=str(config.optimizer or "adamw"),
+                                process=layout.data_index)
     for module in (student, teacher):  # every rank starts from rank 0's weights
         broadcast_module(module, group)
+    shard_pretrain_state(state, layout)  # then keeps its columns of the head
 
-    global_batch = batch_size * n_proc
+    global_batch = batch_size * n_data
     total_iters = max(int(config.training_epochs) * config.iter_num, 1)
     # virtual-epoch count (train.py:118-119)
     nepochs = int(config.training_epochs * config.iter_num * global_batch
@@ -173,7 +184,7 @@ def _train(config, args, device, group) -> dict:
         freeze_last_layer=int(config.freeze_last_layer),
         global_batch=global_batch,
         imgnet_based=int(config.imgnet_based),
-        group=group)
+        group=layout)
 
     ckpt_dir = os.path.join(config.output_dir, config.global_name)
     manager = CheckpointManager(ckpt_dir, max_to_keep=3,
@@ -181,9 +192,9 @@ def _train(config, args, device, group) -> dict:
     latest = manager.latest_step()
     if latest is not None:
         logging.info(f"resuming from checkpoint step {latest}")
-        restore_pretrain_state(state, manager.restore(latest, map_location=device), group)
-        for module in (student, teacher):
-            broadcast_module(module, group)
+        restore_pretrain_state(state, manager.restore(latest, map_location=device), layout)
+        for module in (student, teacher):  # the ranks of one model index alike
+            broadcast_module(module, layout.data)
 
     metric_logger = MetricLogger(delimiter="  ")
     # background staging: K uint8 batches stacked, pinned and copied ahead of
@@ -235,9 +246,9 @@ def _train(config, args, device, group) -> dict:
             epoch = int(iteration * global_batch // config.imgnet_based)
             if epoch != global_epoch:
                 global_epoch = epoch
-                metric_logger.synchronize_between_processes(group)
+                metric_logger.synchronize_between_processes(layout.data)
                 logging.info(f"Averaged stats: {metric_logger}")
-                manager.save(iteration, pretrain_state_payload(state, group))
+                manager.save(iteration, pretrain_state_payload(state, layout))
                 if me == 0:
                     stats = {f"train_{k}": m.global_avg for k, m in metric_logger.meters.items()}
                     stats["epoch"] = epoch
@@ -265,7 +276,7 @@ def _train(config, args, device, group) -> dict:
         if writer is not None:
             writer.close()
 
-    manager.save(iteration, pretrain_state_payload(state, group))
+    manager.save(iteration, pretrain_state_payload(state, layout))
     manager.wait()
     total = time.time() - start
     images_per_s = global_batch * (iteration - start_iteration) / total

@@ -15,7 +15,8 @@ One process, or one process per GPU under ``torchrun`` (data parallelism,
 evaluation is sharded over the ranks and each gets the full benchmarks'
 figures, and rank 0 alone writes checkpoints, the evaluation log and
 TensorBoard. ``mesh.num_devices`` must be null or the world size;
-``mesh.model_parallel`` above 1 is refused until ROADMAP M11b.
+``mesh.model_parallel`` is not read (as in the JAX CLI: only the pretraining
+head is split over a model axis).
 
 Usage:
   python -m ccd_tpu_torch.cli.train_finetune -c ccd_tpu_torch/configs/ccd_finetune_ard.yaml \
@@ -124,7 +125,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     "best_accuracy", "images_per_s" (with data loading), "checkpoint"}``."""
     args = _parse_arguments(argv)
     from ccd_tpu_torch.config import Config
-    from ccd_tpu_torch.parallel.mesh import distributed_run, pretrain_mesh, rank
+    from ccd_tpu_torch.parallel.mesh import data_mesh, distributed_run, rank
     from ccd_tpu_torch.utils import resolve_device
     from ccd_tpu_torch.utils.logging import run_log
 
@@ -135,9 +136,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.test_root:
         config.dataset_test_roots = [args.test_root]
     with distributed_run(resolve_device(args.device)) as device:
-        # the JAX CLI lays a data mesh (train_finetune.py:244); the model
-        # axis is refused in the same words as the pretraining CLI's
-        group = pretrain_mesh(config.mesh_num_devices, config.mesh_model_parallel)
+        # the JAX CLI lays a data mesh (train_finetune.py:244) and reads no
+        # mesh.model_parallel: a recognizer has no wide head to split
+        group = data_mesh(config.mesh_num_devices)
         with run_log(config, lead=rank(group) == 0):
             return _run(config, args, device, group)
 

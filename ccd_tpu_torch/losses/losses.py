@@ -23,6 +23,12 @@ non-PAD targets of ``tf_loss`` are all-reduced (a mean of per-rank means
 would weigh the ranks wrongly, their counts differ); ``seg_loss`` has the
 same count on every rank, so its share is the local mean over the world
 size. Without a group no collective runs and the losses are the plain ones.
+
+Tensor parallelism (``model_group``): the DINO head's logits and the centre
+hold this model rank's columns of ``out_dim``. :func:`dino_char_loss` then
+all-reduces each row's maxima and sums over the model group
+(:class:`_ShardedCrossViewCE`), and :func:`dino_center_update` updates the
+rank's own columns; ``group`` is the data group (the ranks of other samples).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from ccd_tpu_torch.ops.fused_dino_ce import fused_dino_row_ce
-from ccd_tpu_torch.parallel.mesh import Group, all_reduce_sum, world
+from ccd_tpu_torch.parallel.mesh import Group, all_reduce_max, all_reduce_sum, world
 
 
 def _global_count(w: torch.Tensor, group: Group, what: str) -> torch.Tensor:
@@ -65,21 +71,27 @@ def teacher_temp_schedule(warmup_teacher_temp: float, teacher_temp: float,
 
 def dino_char_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
                    valid: torch.Tensor, center: torch.Tensor, teacher_temp: float,
-                   student_temp: float = 0.1, group: Group = None) -> torch.Tensor:
+                   student_temp: float = 0.1, group: Group = None,
+                   model_group: Group = None) -> torch.Tensor:
     """Cross-view character-distillation CE (the plain chain).
 
     student_logits/teacher_logits: (2B, T, K) — view-1 then view-2 halves.
     valid: (B, T) bool char-slot mask (shared across views, dino_vision.py:87).
-    center: (1, K) teacher centering state.
+    center: (1, K) teacher centering state. With ``model_group`` K is this
+    rank's columns and the CE is :class:`_ShardedCrossViewCE`'s.
     """
+    w = valid.float()
+    denom = _global_count(w, group, "dino_denominator")
+    if model_group is not None:
+        w = w.reshape(-1)
+        return _ShardedCrossViewCE.apply(student_logits, teacher_logits.detach(),
+                                         torch.cat([w, w]), center, float(teacher_temp),
+                                         float(student_temp), denom, model_group)
     b = valid.shape[0]
     s = (student_logits / student_temp).float()
     s1, s2 = s[:b], s[b:]
     t = torch.softmax((teacher_logits.detach().float() - center) / teacher_temp, dim=-1)
     t1, t2 = t[:b], t[b:]
-
-    w = valid.float()
-    denom = _global_count(w, group, "dino_denominator")
 
     def term(q, v):
         ce = (-q * torch.log_softmax(v, dim=-1)).sum(-1)  # (B, T)
@@ -87,6 +99,63 @@ def dino_char_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
 
     # teacher view i distills into student view j != i (Dino_loss.py:94-102)
     return (term(t1, s2) + term(t2, s1)) / 2.0
+
+
+class _ShardedCrossViewCE(torch.autograd.Function):
+    """:func:`dino_char_loss` over column shards of the logits.
+
+    Rows are view-stacked (view 1's then view 2's char slots); teacher row
+    ``r`` pairs with the student row of the other view. With ``s`` the
+    student logits over ``student_temp`` and ``t`` the centred teacher
+    logits over ``teacher_temp``, a row's CE is ``lse(s) - sum(p_t s)``,
+    ``p_t = softmax(t)``. Forward: one all-reduce of the rows' maxima of
+    ``s`` and ``t`` (MAX), then one of their exp-sums and of ``sum(exp(t -
+    max_t) s)`` (SUM), over the model group. Backward: on the rank's own
+    columns, ``ds = g w (softmax(s) - p_t) / (2 denom student_temp)`` from
+    the saved global statistics; no collective (autograd never sees the
+    max)."""
+
+    @staticmethod
+    def forward(ctx, student_logits, teacher_logits, w2, center, teacher_temp, student_temp,
+                denom, group):
+        s, t = _sharded_ce_inputs(student_logits, teacher_logits, center, teacher_temp,
+                                  student_temp)
+        maxes = torch.stack([s.amax(-1), t.amax(-1)], dim=1)              # (rows, 2)
+        all_reduce_max(maxes, group, "dino_ce_max")
+        et = torch.exp(t - maxes[:, 1:])
+        sums = torch.stack([torch.exp(s - maxes[:, :1]).sum(-1), et.sum(-1),
+                            (et * s).sum(-1)], dim=1)                     # (rows, 3)
+        all_reduce_sum(sums, group, "dino_ce_sums")
+        ce = maxes[:, 0] + torch.log(sums[:, 0]) - sums[:, 2] / sums[:, 1]
+        ctx.save_for_backward(student_logits, teacher_logits, center, w2, maxes, sums, denom)
+        ctx.temps = teacher_temp, student_temp
+        # sum over both row halves = term(t1->s2) + term(t2->s1)
+        return (ce * w2).sum() / denom / 2.0
+
+    @staticmethod
+    def backward(ctx, g):
+        student_logits, teacher_logits, center, w2, maxes, sums, denom = ctx.saved_tensors
+        teacher_temp, student_temp = ctx.temps
+        s, t = _sharded_ce_inputs(student_logits, teacher_logits, center, teacher_temp,
+                                  student_temp)
+        p_s = torch.exp(s - maxes[:, :1]) / sums[:, :1]
+        p_t = torch.exp(t - maxes[:, 1:]) / sums[:, 1:2]
+        ds = (p_s - p_t) * (g * w2 / (denom * 2.0 * student_temp))[:, None]
+        n = ds.shape[0] // 2
+        ds = torch.cat([ds[n:], ds[:n]])  # back to the student's own rows
+        return (ds.to(student_logits.dtype).reshape(student_logits.shape),
+                None, None, None, None, None, None, None)
+
+
+def _sharded_ce_inputs(student_logits, teacher_logits, center, teacher_temp, student_temp):
+    """(s, t) of :class:`_ShardedCrossViewCE` as (rows, K) fp32, ``s``'s rows
+    swapped to the other view's, as the plain chain rounds them."""
+    k = student_logits.shape[-1]
+    s = (student_logits / student_temp).float().reshape(-1, k)
+    n = s.shape[0] // 2
+    s = torch.cat([s[n:], s[:n]])
+    t = ((teacher_logits.float() - center) / teacher_temp).reshape(-1, k)
+    return s, t
 
 
 def dino_char_loss_fused(student_logits: torch.Tensor, teacher_logits: torch.Tensor,

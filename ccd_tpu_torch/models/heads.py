@@ -7,6 +7,8 @@ reference's, so its checkpoints load by name.
     (hidden 2048 -> bottleneck 256, BatchNorm after the hidden layers with
     ``use_bn``) -> L2 normalize -> weight-normed linear to ``out_dim``
     (65536), with the weight-norm gain ``g`` frozen when ``norm_last_layer``.
+    Under tensor parallelism (:meth:`DINOHead.shard_last_layer`) the last
+    layer holds this model rank's ``out_dim / mp`` outputs.
   * ``SegHead`` — ``Dino/modules/segmentor.py:37-95``: three per-level conv
     branches over the tapped ViT maps, concat to 192ch, two ConvTranspose 4x4
     stride-2 upsamplings (8x32 -> 32x128), 3x3 conv to 2-class text/background
@@ -25,6 +27,7 @@ from torch import nn
 from ccd_tpu_torch.models.layers import (BatchNorm, Conv2d, ConvTranspose2d, Dense, Dropout,
                                          init_dense_layers, lecun_normal_, trunc_normal_)
 from ccd_tpu_torch.ops.activations import gelu as _gelu
+from ccd_tpu_torch.parallel.mesh import Group, copy_to_model_group, shard_rows
 
 
 class _Gelu(nn.Module):
@@ -56,7 +59,12 @@ class DINOHead(nn.Module):
     Dense, as in the reference's Sequential: ``mlp.{0,1,3,4,6}`` with
     BatchNorm, ``mlp.{0,2,4}`` without. Training mode normalises with the
     batch statistics and updates the running ones; evaluation mode uses the
-    running ones."""
+    running ones.
+
+    ``model_group`` (set by :meth:`shard_last_layer`): the last layer holds
+    a slice of the outputs and the forward returns those logits; its input
+    passes Megatron's *f* (``parallel.mesh.copy_to_model_group``), so the
+    backward sums the ranks' shares of the input's gradient."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bn: bool = False,
                  norm_last_layer: bool = True, nlayers: int = 3, hidden_dim: int = 2048,
@@ -76,7 +84,23 @@ class DINOHead(nn.Module):
         self.use_bn = use_bn
         self.norm_last_layer = norm_last_layer
         self.dtype = dtype
+        self.model_group: Group = None
         self.reset_parameters()
+
+    def shard_last_layer(self, index: int, count: int, group: Group) -> None:
+        """Keep outputs ``[index K / count, (index + 1) K / count)`` of the
+        last layer (rows of ``weight_v`` and ``weight_g``: the JAX package's
+        column shard of ``last_layer_v``/``g``), in place; ``group`` is the
+        model group the other slices live on. ``K % count`` is refused in the
+        JAX package's words."""
+        k, bottleneck = self.last_layer.weight_v.shape
+        if k % count:
+            raise ValueError(f"cannot column-shard head/last_layer_v {(bottleneck, k)} over "
+                             f"model_parallel={count}: last dim not divisible")
+        with torch.no_grad():
+            for p in (self.last_layer.weight_v, self.last_layer.weight_g):
+                p.data = shard_rows(p.data, index, count)
+        self.model_group = group
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         init_dense_layers(self.mlp, generator)
@@ -96,6 +120,7 @@ class DINOHead(nn.Module):
         # sqrt'(0) = inf would turn their (masked-out) cotangents into NaNs.
         sumsq = x.float().square().sum(-1, keepdim=True)
         x = x / torch.sqrt(sumsq.clamp_min(1e-24)).to(x.dtype)
+        x = copy_to_model_group(x, self.model_group, "head_input")
         # weight-normed final linear (no bias): w = g * v / ||v||
         v, g = self.last_layer.weight_v, self.last_layer.weight_g
         if self.norm_last_layer:

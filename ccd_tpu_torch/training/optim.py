@@ -27,6 +27,8 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
+from ccd_tpu_torch.parallel.mesh import Group, all_reduce_sum
+
 Params = Dict[str, torch.Tensor]
 MOMENTUM = 0.9                  # sgd's and lars's trace decay (make_optimizer)
 LARS_TRUST_COEFFICIENT = 1e-3   # optax.lars's default, which make_optimizer keeps
@@ -111,6 +113,21 @@ def optimizer_init(name: str, params: Params) -> OptState:
     raise ValueError(f"unknown optimizer {name!r}")
 
 
+def tensor_norms(tensors: List[torch.Tensor], sharded: Optional[List[bool]] = None,
+                 group: Group = None) -> torch.Tensor:
+    """Each tensor's L2 norm, stacked in fp32. With a model ``group``, a
+    tensor flagged in ``sharded`` gets the norm over every rank's slice (one
+    all-reduce of the flagged squares)."""
+    norms = [n.float() for n in torch._foreach_norm(tensors)]
+    idx = [i for i, f in enumerate(sharded or ()) if f] if group is not None else []
+    if idx:
+        squares = all_reduce_sum(torch.stack([norms[i] for i in idx]).square(), group,
+                                 "sharded_norms")
+        for i, n in zip(idx, squares.sqrt().unbind(0)):
+            norms[i] = n
+    return torch.stack(norms)
+
+
 def _with_decay(grads: List[torch.Tensor], params: List[torch.Tensor], decay: List[bool],
                 weight_decay: float) -> List[torch.Tensor]:
     """``optax.add_decayed_weights(wd, mask)``: ``g + wd * p`` on the
@@ -127,7 +144,8 @@ def _with_decay(grads: List[torch.Tensor], params: List[torch.Tensor], decay: Li
 
 def momentum_updates(grads: List[torch.Tensor], state: MomentumState,
                      params: List[torch.Tensor], decay: List[bool], lr: float,
-                     weight_decay: float) -> List[torch.Tensor]:
+                     weight_decay: float, sharded: Optional[List[bool]] = None,
+                     group: Group = None) -> List[torch.Tensor]:
     """One step of ``make_optimizer("sgd")`` or ``("lars")``: advances
     ``state.trace`` in place and returns the updates. The two chains take the
     momentum on different sides of the learning rate:
@@ -139,13 +157,15 @@ def momentum_updates(grads: List[torch.Tensor], state: MomentumState,
         ``m = -lr trust(g + wd p) + 0.9 m``, update ``m``, where
         ``trust(u) = u * 0.001 * |p| / |u|``, or ``u`` where either norm is 0.
 
-    Nothing is read back to the host."""
+    Nothing is read back to the host. ``sharded``/``group``: the norms of
+    sliced parameters are over the model group (:func:`tensor_norms`)."""
     lars = state.name == "lars"
     updates = _with_decay(grads, params, decay, weight_decay)
     idx = [i for i, d in enumerate(decay) if d] if lars else []
     if idx:
-        p_norm = torch.stack(torch._foreach_norm([params[i] for i in idx])).float()
-        u_norm = torch.stack(torch._foreach_norm([updates[i] for i in idx])).float()
+        shards = [bool(sharded and sharded[i]) for i in idx]
+        p_norm = tensor_norms([params[i] for i in idx], shards, group)
+        u_norm = tensor_norms([updates[i] for i in idx], shards, group)
         ratio = LARS_TRUST_COEFFICIENT * p_norm / u_norm
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
         scaled = torch._foreach_mul([updates[i] for i in idx], list(ratio.unbind(0)))
@@ -160,23 +180,28 @@ def momentum_updates(grads: List[torch.Tensor], state: MomentumState,
 
 
 def optimizer_updates(grads: List[torch.Tensor], state: OptState, params: List[torch.Tensor],
-                      decay: List[bool], lr: float, weight_decay: float
+                      decay: List[bool], lr: float, weight_decay: float,
+                      sharded: Optional[List[bool]] = None, group: Group = None
                       ) -> List[torch.Tensor]:
     """One step of whichever optimizer ``state`` belongs to (see
-    :func:`adamw_updates`, :func:`momentum_updates`)."""
+    :func:`adamw_updates`, :func:`momentum_updates`; AdamW is elementwise
+    and needs no ``sharded``/``group``)."""
     if isinstance(state, AdamWState):
         return adamw_updates(grads, state, params, decay, lr, weight_decay)
-    return momentum_updates(grads, state, params, decay, lr, weight_decay)
+    return momentum_updates(grads, state, params, decay, lr, weight_decay, sharded, group)
 
 
-def clip_gradients_per_param(grads: List[torch.Tensor], clip: Optional[float]
+def clip_gradients_per_param(grads: List[torch.Tensor], clip: Optional[float],
+                             sharded: Optional[List[bool]] = None, group: Group = None
                              ) -> List[torch.Tensor]:
     """Per-parameter L2 norm clipping (clip_gradients, utils.py:132-141):
-    ``g * clip / (norm + 1e-6)`` where that coefficient is below 1. In place."""
+    ``g * clip / (norm + 1e-6)`` where that coefficient is below 1. In place.
+    ``sharded``/``group``: a sliced parameter's norm is over the model
+    group (:func:`tensor_norms`)."""
     if not clip:
         return grads
-    norms = torch._foreach_norm(grads)
-    coefs = torch.stack(norms).float().add_(1e-6).reciprocal_().mul_(clip).clamp_max_(1.0)
+    norms = tensor_norms(grads, sharded, group)
+    coefs = norms.add_(1e-6).reciprocal_().mul_(clip).clamp_max_(1.0)
     torch._foreach_mul_(grads, list(coefs.unbind(0)))
     return grads
 

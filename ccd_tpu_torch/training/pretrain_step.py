@@ -29,12 +29,28 @@ centre alike, and the parameters stay equal across ranks, as on the JAX
 package's one global array. The cross-view CE pairs rows on the rank (each
 rank's rows are [view 1; view 2] of its own samples), so the fused kernel
 runs as on one device. The reported losses are the global ones.
+
+Tensor parallelism (``group`` a ``parallel.mesh.Layout`` with a model axis,
+the JAX package's ``(data, model)`` mesh): the ranks of one model group run
+the step on the same samples, each holding its columns of the DINO head's
+last layer (``weight_v``/``weight_g``), of their optimizer state and of the
+centre (:func:`shard_pretrain_state`); everything else is replicated. The
+DINO CE is the plain chain over the shards (the JAX step leaves the fused
+kernel under a model axis), with each row's maxima and sums all-reduced
+over the model group; the head's input sums its gradient over the model
+group (Megatron's *f*). The replicated gradients are summed over the world
+and divided by ``mp`` (every rank then holds the same bits), the sharded
+ones summed over the data group; the clip and the lars trust ratio take a
+sharded tensor's norm over the model group. Denominators, BatchNorm
+statistics, the centre's sums and the losses go over the data group. A
+checkpoint holds the full tensors (:func:`pretrain_state_payload` gathers
+the shards), so it resumes at any ``mp``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,7 +65,8 @@ from ccd_tpu_torch.models.layers import set_batchnorm_group
 from ccd_tpu_torch.models.pretrain import CCDPretrainModel, char_validity_mask
 from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.warp import affine_grid, grid_sample_binary_packed
-from ccd_tpu_torch.parallel.mesh import Group, all_reduce_flat, all_reduce_sum, rank_seed
+from ccd_tpu_torch.parallel.mesh import (Group, Layout, all_reduce_flat, all_reduce_sum,
+                                         gather_rows, rank_seed, shard_rows)
 from ccd_tpu_torch.schedules import cosine_iter_schedule
 from ccd_tpu_torch.training.optim import (
     AdamWState, MomentumState, OptState, cancel_last_layer_grads, clip_gradients_per_param,
@@ -57,6 +74,9 @@ from ccd_tpu_torch.training.optim import (
 )
 
 _EMA_BRANCHES = ("backbone.", "head.")  # what the teacher tracks (train.py:268-272)
+# split over the model group along out_dim: the JAX package's column shard of
+# head/last_layer_{v,g} (ccd_tpu/parallel/mesh.py::pretrain_state_shardings)
+SHARDED_PARAMETERS = ("head.last_layer.weight_v", "head.last_layer.weight_g")
 
 
 @dataclass
@@ -112,47 +132,93 @@ def init_pretrain_state(student: CCDPretrainModel, teacher: CCDPretrainModel,
         aug_generator=torch.Generator(device=device).manual_seed(rank_seed(seed, process) + 1))
 
 
-def pretrain_state_payload(state: PretrainState, group: Group = None) -> dict:
+def _sharded_buffers(state: PretrainState):
+    """(optimizer buffers in the payload's order, whether each is sharded)."""
+    names = [n for n, _ in state.student.named_parameters()]
+    opt = state.opt_state
+    buffers = opt.trace if isinstance(opt, MomentumState) else opt.mu + opt.nu
+    return buffers, [n in SHARDED_PARAMETERS for n in names * (len(buffers) // len(names))]
+
+
+def shard_pretrain_state(state: PretrainState, group: Union[Group, Layout]) -> PretrainState:
+    """Keep this model rank's columns of the DINO head's last layer (student
+    and teacher), of their optimizer state and of the centre, in place; a
+    no-op without a model axis. Called on the full state, after every rank
+    holds rank 0's weights, so the shards start as the unsharded init."""
+    layout = Layout.of(group)
+    if layout.model is None:
+        return state
+    index, count = layout.model_index, layout.model_size
+    for model in (state.student, state.teacher):  # refuses out_dim % mp first
+        model.head.shard_last_layer(index, count, layout.model)
+    for t, sharded in zip(*_sharded_buffers(state)):
+        if sharded:
+            t.data = shard_rows(t.data, index, count)
+    state.center = shard_rows(state.center, index, count, dim=1)
+    return state
+
+
+def pretrain_state_payload(state: PretrainState, group: Union[Group, Layout] = None) -> dict:
     """Checkpoint payload mirroring the reference's
     {student, teacher, optimizer, epoch/iteration, dino_loss-center}
     (train.py:197-207); the optimizer as AdamW's ``{mu, nu, count}`` or
-    ``{optimizer: 'sgd'|'lars', trace}``; and every rank's generator states
-    (:func:`generator_payload`; under ``group`` every rank calls this)."""
+    ``{optimizer: 'sgd'|'lars', trace}``; and every data rank's generator
+    states (:func:`generator_payload`). Every rank calls this; under a
+    model axis the shards are gathered, so the payload holds the full
+    tensors whatever ``mp``."""
+    layout = Layout.of(group)
+    full = lambda t, dim=0: gather_rows(t, layout.model, "checkpoint_shards", dim)
+    student, teacher = state.student.state_dict(), state.teacher.state_dict()
+    if layout.model is not None:
+        for sd in (student, teacher):
+            for n in SHARDED_PARAMETERS:
+                sd[n] = full(sd[n])
+    buffers, sharded = _sharded_buffers(state)
+    buffers = [full(b) if f else b for b, f in zip(buffers, sharded)]
     opt = state.opt_state
-    opt_payload = ({"mu": opt.mu, "nu": opt.nu, "count": opt.count}
-                   if isinstance(opt, AdamWState) else {"optimizer": opt.name, "trace": opt.trace})
-    return {"student": state.student.state_dict(),
-            "teacher": state.teacher.state_dict(),
-            "opt_state": opt_payload,
-            "center": state.center, "iteration": state.iteration,
-            **generator_payload([state.generator, state.aug_generator], group)}
+    if isinstance(opt, AdamWState):
+        half = len(buffers) // 2
+        opt_payload = {"mu": buffers[:half], "nu": buffers[half:], "count": opt.count}
+    else:
+        opt_payload = {"optimizer": opt.name, "trace": buffers}
+    return {"student": student, "teacher": teacher, "opt_state": opt_payload,
+            "center": full(state.center, 1), "iteration": state.iteration,
+            **generator_payload([state.generator, state.aug_generator], layout.data)}
 
 
 def restore_pretrain_state(state: PretrainState, payload: dict,
-                           group: Group = None) -> PretrainState:
+                           group: Union[Group, Layout] = None) -> PretrainState:
     """Put a :func:`pretrain_state_payload` back into ``state``, in place:
     both modules, the optimizer state (AdamW's moments and count, or the
     sgd/lars momentum), the centre, the iteration (tensors are copied onto
-    the state's devices) and this rank's generator states. A checkpoint of
-    another optimizer than the state's, or of another world size than
-    ``group``'s, raises ``ValueError``."""
+    the state's devices) and this rank's generator states; under a model
+    axis each rank takes its own columns of the full tensors. A checkpoint
+    of another optimizer than the state's, or of another number of data
+    ranks than ``group``'s, raises ``ValueError``."""
+    layout = Layout.of(group)
+    mine = lambda t, dim=0: t if layout.model is None else \
+        shard_rows(t, layout.model_index, layout.model_size, dim)
     opt = payload["opt_state"]
     saved_name = opt.get("optimizer", "adamw")
     if saved_name != state.opt_state.name:
         raise ValueError(f"the checkpoint holds {saved_name} state; this run trains "
                          f"with {state.opt_state.name}")
-    restore_generators([state.generator, state.aug_generator], payload, group)
-    state.student.load_state_dict(payload["student"], strict=True)
-    state.teacher.load_state_dict(payload["teacher"], strict=True)
+    restore_generators([state.generator, state.aug_generator], payload, layout.data)
+    for model, key in ((state.student, "student"), (state.teacher, "teacher")):
+        sd = dict(payload[key])
+        for n in SHARDED_PARAMETERS:
+            sd[n] = mine(sd[n])
+        model.load_state_dict(sd, strict=True)
+    buffers, sharded = _sharded_buffers(state)
     if isinstance(state.opt_state, MomentumState):
-        mine, saved = state.opt_state.trace, opt["trace"]
+        saved = opt["trace"]
     else:
-        mine, saved = state.opt_state.mu + state.opt_state.nu, opt["mu"] + opt["nu"]
+        saved = opt["mu"] + opt["nu"]
         state.opt_state.count = int(opt["count"])
     with torch.no_grad():
-        for m, s in zip(mine, saved):
-            m.copy_(s)
-        state.center.copy_(payload["center"])
+        for m, s, f in zip(buffers, saved, sharded):
+            m.copy_(mine(s) if f else s)
+        state.center.copy_(mine(payload["center"], 1))
     state.iteration = int(payload["iteration"])
     return state
 
@@ -179,7 +245,7 @@ def make_pretrain_step(
     gt_mask_epochs: int = 30,        # epoch threshold for GT vs predicted masks
     num_slots: int = 26,
     use_fused_ce: Optional[bool] = None,
-    group: Group = None,
+    group: Union[Group, Layout] = None,
 ) -> Callable[..., Tuple[PretrainState, Dict[str, object]]]:
     """Build the train step; ``step(state, images, masks, theta)`` advances
     ``state`` in place and returns it with the step's metrics.
@@ -187,13 +253,23 @@ def make_pretrain_step(
     ``use_fused_ce``: route the DINO CE through the fused kernel (one pass
     over the (2B*T, out_dim) logits, cross-view pairing by addressing,
     ``pool_project(flat=True)`` rows) instead of the plain chain. ``None`` =
-    on for CUDA tensors, off on the CPU.
+    on for CUDA tensors, off on the CPU, and off under a model axis, where
+    ``True`` is refused (the kernel's online softmax needs every column on
+    the rank; the JAX step keeps its XLA chain there).
 
-    ``group``: the data-parallel ``torch.distributed`` group (see the module
-    docstring); the inputs are this rank's share of the global batch and
+    ``group``: the data-parallel ``torch.distributed`` group, or the
+    ``parallel.mesh.Layout`` of a ``(data, model)`` run whose state went
+    through :func:`shard_pretrain_state` (see the module docstring); the
+    inputs are this data rank's share of the global batch and
     ``global_batch`` the global batch's size. None: one process, no
     collective.
     """
+    layout = Layout.of(group)
+    data, model_group = layout.data, layout.model
+    if model_group is not None and use_fused_ce:
+        raise ValueError(f"use_fused_ce=True with model_parallel={layout.model_size}: the fused "
+                         "DINO CE needs all out_dim columns on one rank; under a model axis the "
+                         "step keeps the plain chain (as the JAX step keeps its XLA chain)")
     temps = np.asarray(teacher_temps, np.float32)
 
     def step(state: PretrainState, images: torch.Tensor, masks: torch.Tensor,
@@ -202,7 +278,8 @@ def make_pretrain_step(
         student, teacher = state.student, state.teacher
         b, _, h, w, _ = images.shape
         it = state.iteration
-        fused = images.is_cuda if use_fused_ce is None else use_fused_ce
+        fused = model_group is None and (images.is_cuda if use_fused_ce is None
+                                         else use_fused_ce)
         # virtual-epoch bookkeeping (train.py:188)
         epoch = ((it + 1) * global_batch) // imgnet_based
         teacher_temp = float(temps[min(max(epoch, 0), len(temps) - 1)])
@@ -210,7 +287,7 @@ def make_pretrain_step(
         wd = cosine_iter_schedule(it, weight_decay, weight_decay_end, total_iters)
         m = cosine_iter_schedule(it, momentum_teacher, 1.0, total_iters)
         freeze = epoch < freeze_last_layer
-        set_batchnorm_group(student, group)
+        set_batchnorm_group(student, data)
 
         x = torch.cat([images[:, 1], images[:, 2]], dim=0)  # (2B, H, W, 3)
         grid = affine_grid(theta[:, :2, :].float(), (h, w))
@@ -258,11 +335,14 @@ def make_pretrain_step(
         # warped_gt came from the packed warp above
         with _phase("seg_loss"):
             seg_gt = torch.cat([masks, warped_gt], dim=0)
-            l_seg = seg_loss(seg_logits, seg_gt, group)
+            l_seg = seg_loss(seg_logits, seg_gt, data)
         with _phase("dino_ce"):
-            ce_fn = dino_char_loss_fused if fused else dino_char_loss
-            l_dino = ce_fn(s_logits, t_logits, valid, state.center, teacher_temp, student_temp,
-                           group=group)
+            if fused:
+                l_dino = dino_char_loss_fused(s_logits, t_logits, valid, state.center,
+                                              teacher_temp, student_temp, group=data)
+            else:
+                l_dino = dino_char_loss(s_logits, t_logits, valid, state.center, teacher_temp,
+                                        student_temp, group=data, model_group=model_group)
             loss = l_seg + l_dino
 
         named = dict(student.named_parameters())
@@ -273,12 +353,13 @@ def make_pretrain_step(
             # a parameter the loss does not reach (the frozen weight-norm gain)
             # has a zero gradient, not none: the optimizer still runs on it
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-            grads = all_reduce_flat(grads, group, "gradients")
-            grads = clip_gradients_per_param(grads, clip_grad)
+            sharded = [model_group is not None and n in SHARDED_PARAMETERS for n in names]
+            grads = _reduce_gradients(grads, sharded, layout)
+            grads = clip_gradients_per_param(grads, clip_grad, sharded, model_group)
             grads = cancel_last_layer_grads(names, grads, freeze)
             decay = weight_decay_mask(named, student.norm_last_layer)
             updates = optimizer_updates(grads, state.opt_state, params,
-                                        [decay[n] for n in names], lr, wd)
+                                        [decay[n] for n in names], lr, wd, sharded, model_group)
             # cancel_gradients_last_layer sets p.grad=None, which makes torch
             # AdamW skip the param entirely — weight decay included — so the
             # whole UPDATE is zeroed while frozen, not just the gradient. As
@@ -293,8 +374,8 @@ def make_pretrain_step(
             tracked = [n for n in names if n.startswith(_EMA_BRANCHES)]
             ema_update([t_named[n] for n in tracked], [named[n] for n in tracked], m)
             state.center = dino_center_update(state.center, t_logits, valid, center_momentum,
-                                              group)
-            losses = all_reduce_sum(torch.stack([loss, l_seg, l_dino]).detach(), group,
+                                              data)
+            losses = all_reduce_sum(torch.stack([loss, l_seg, l_dino]).detach(), data,
                                     "losses")
 
         state.iteration = it + 1
@@ -303,6 +384,26 @@ def make_pretrain_step(
         return state, metrics
 
     return step
+
+
+def _reduce_gradients(grads, sharded, layout: Layout):
+    """Sum the ranks' gradients. Data parallelism: one flat all-reduce over
+    the group. Under a model axis: the replicated ones over the world, over
+    ``mp`` (each model rank computed the whole gradient of its data rank's
+    samples), and the sharded ones over the data group, one flat all-reduce
+    each."""
+    if layout.model is None:
+        return all_reduce_flat(grads, layout.data, "gradients")
+    out = list(grads)
+    for flag, group, what in ((False, layout.world, "gradients"),
+                              (True, layout.data, "sharded_gradients")):
+        idx = [i for i, f in enumerate(sharded) if f == flag]
+        summed = all_reduce_flat([grads[i] for i in idx], group, what)
+        if not flag:
+            torch._foreach_mul_(summed, 1.0 / layout.model_size)
+        for i, g in zip(idx, summed):
+            out[i] = g
+    return out
 
 
 def make_fused_pretrain_step(*, severity: int = 5, **kwargs

@@ -71,6 +71,12 @@ shipped configurations, with random weights from a seed:
     the finetune step through a one-process NCCL group, in turns with the
     same steps without it from one state and one input: losses and first
     moments held, the collectives' calls, bytes and device time;
+  * tensor parallelism of the DINO head (``mesh.model_parallel`` 2): the
+    ViT-Small pretraining step in two processes sharing the card over gloo
+    (``out_dim`` 65536 as two 32768-column shards, no K2: the plain CE chain
+    over the shards), held against the same steps in one process; then the
+    ``train`` CLI at ``model_parallel`` 2 in both (a run and its resume) and
+    one process resuming its checkpoint;
   * the C++ LMDB reader (``ccd_tpu_torch/native/``, built by ``g++`` at
     first use) against the Python one over the ``train`` CLI's 1024 words,
     byte for byte; the ``train`` CLI reads through it;
@@ -135,7 +141,9 @@ from ccd_tpu_torch.ops.bilateral import (bilateral_filter_fused, bilateral_filte
                                          kernel_attributes as bilateral_attributes)
 from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.kmeans_mask import kmeans_foreground_mask
-from ccd_tpu_torch.parallel.mesh import collective_counts, reset_collective_counts
+from ccd_tpu_torch.parallel.mesh import (collective_counts, collective_counts_by_group,
+                                         init_distributed, pretrain_mesh,
+                                         reset_collective_counts)
 from ccd_tpu_torch.ops.flash_attention import (backward_kernel_attributes, flash_attention,
                                                flash_attention_bwd, flash_attention_bwd_plain,
                                                flash_attention_fwd, flash_attention_plain,
@@ -149,8 +157,9 @@ from ccd_tpu_torch.ops.fused_dino_ce import (backward_kernel_attributes as ce_ba
 from ccd_tpu_torch.training.finetune_step import (FinetuneState, init_finetune_state,
                                                   make_fused_finetune_step)
 from ccd_tpu_torch.training.optim import MomentumState
-from ccd_tpu_torch.training.pretrain_step import (PretrainState, init_pretrain_state,
-                                                  make_fused_pretrain_step)
+from ccd_tpu_torch.training.pretrain_step import (SHARDED_PARAMETERS, PretrainState,
+                                                  init_pretrain_state, make_fused_pretrain_step,
+                                                  pretrain_state_payload, shard_pretrain_state)
 
 KERNEL_LIBRARIES = ("packed_attention", "packed_attention_bwd", "fused_dino_ce", "bilateral")
 
@@ -184,8 +193,8 @@ OPT_TIMED_STEPS = 3                    # sgd and lars: timed steps after the com
 REMAT_TIMED_STEPS = 3                  # timed steps with and without remat after the first
 # the convergence demo on the card, cut to a few hundred iterations a phase
 # (the demo logs its pretrain loss every 100 iterations)
-CONV_SHORT = {"pretrain_samples": 4096, "pretrain_iters": 400, "labeled": 1024,
-              "eval_samples": 256, "finetune_iters": 200, "eval_iters": 100,
+CONV_SHORT = {"pretrain_samples": 4096, "pretrain_iters": 300, "labeled": 1024,
+              "eval_samples": 256, "finetune_iters": 150, "eval_iters": 75,
               "lr_finetune": 1e-3}
 CLI_ITERS, CLI_RESUMED_ITERS, CLI_WORDS = 16, 48, 1024  # 1024 words: 16 iterations an epoch
 STEP_PHASES = ("augment", "student_encode", "segment", "label_clusters", "warp", "teacher_encode",
@@ -206,6 +215,17 @@ DP_STEPS = 3
 # the CLIs' data-parallel launcher: torchrun, one process (the card machine has one GPU)
 TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
 TORCHRUN_LINE = "data parallel: 1 process(es), rank 0, nccl group"
+# tensor parallelism of the DINO head (mesh.model_parallel 2): two processes
+# on the one GPU in a gloo group (NCCL refuses two ranks on one device), one
+# data rank of two model ranks, TP_STEPS steps beside the same steps in one
+# process; then the train CLI at model_parallel 2 (TP_CLI_ITERS iterations,
+# a resume to TP_CLI_RESUMED_ITERS) and one process resuming its checkpoint
+# to TP_CLI_FINAL_ITERS
+TP_WORLD, TP_STEPS = 2, 3
+# 256 words: 4 iterations an epoch, 12 in the configuration's 3 epochs
+TP_CLI_WORDS, TP_CLI_ITERS, TP_CLI_RESUMED_ITERS, TP_CLI_FINAL_ITERS = 256, 4, 8, 10
+TP_WORKER_FLAG = "--tensor-parallel-worker"
+TP_LINE = f"tensor parallel: 1 data rank(s) x {TP_WORLD} model ranks"
 # the learnability probe at the JAX tool's size (tools/overfit_probe.py: 32
 # words, 160 steps), first on its own model (vit_micro, fp32), then at full
 # width; the JAX package's CPU run of the same probe read 32 of 32 words
@@ -1938,15 +1958,18 @@ def remat_phase(card: str) -> dict:
     return remat["launches"]
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def nccl_world_of_one():
     """A one-process NCCL group over a TCP store on 127.0.0.1 at a free port:
     the group ``torchrun --nproc_per_node 1`` gives the CLIs, made in this
     process."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
                                          world_size=1, rank=0)
     return torch.distributed.group.WORLD
 
@@ -2070,6 +2093,295 @@ def data_parallel_phase(card: str) -> dict:
           "seconds": time.time() - t0})
     return {"data_parallel_pretrain": pretrain["kernel_launches"],
             "data_parallel_finetune": finetune["kernel_launches"]}
+
+
+
+def tensor_parallel_schedule(config) -> dict:
+    """:func:`pretrain_schedule` with the last layer unfrozen from the first
+    step, so that the sharded ``weight_v`` moves in the compared steps."""
+    return dict(pretrain_schedule(config, PRETRAIN_BATCH), freeze_last_layer=0)
+
+
+def tensor_parallel_worker(rank: int, work_dir: str, port: int) -> None:
+    """One of TP_WORLD processes of the ``tensor_parallel`` phase, all on
+    ``cuda:0``: joins a gloo group itself (each process sees ``LOCAL_RANK``
+    0), then runs the port as one process per GPU would. The ViT-Small step
+    at ``mesh.model_parallel`` TP_WORLD from the weights and raw batches the
+    phase wrote (``shared.pt``), TP_STEPS steps and one more under the
+    profiler; then the ``train`` CLI at TP_CLI_ITERS and resumed to
+    TP_CLI_RESUMED_ITERS. Writes ``rank<r>.json`` (and, rank 0, the gathered
+    ``weight_v`` and centre) into ``work_dir``."""
+    import hashlib
+    import logging
+
+    from ccd_tpu_torch.cli import train
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_WORLD), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(TP_WORLD), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=TP_WORLD, rank=rank)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.time()
+        device, _ = init_distributed(torch.device("cuda"))
+        layout = pretrain_mesh(None, TP_WORLD)
+        shared = torch.load(os.path.join(work_dir, "shared.pt"), weights_only=True)
+        config, state = vit_small_pretrain_state()
+        # every rank loads the same weights (the CLI runs below broadcast rank 0's)
+        state.student.load_state_dict(shared["student"])
+        state.teacher.load_state_dict(shared["teacher"])
+        shard_pretrain_state(state, layout)
+        step = make_fused_pretrain_step(gt_mask_epochs=30, group=layout,
+                                        **tensor_parallel_schedule(config))
+        raws = [r.to(device) for r in shared["raw"]]
+        masks = [m.to(device) for m in shared["masks"]]
+        reset_kernel_counts()
+        reset_collective_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for raw, mask in zip(raws[:TP_STEPS], masks[:TP_STEPS]):
+            metrics, _, ms = run_pretrain_step(step, state, raw, mask, "tensor_parallel")
+            losses.append([metrics[k] for k in ("loss", "mask_loss", "dino_loss")])
+            step_ms.append(ms)
+        launches = kernel_counts()
+        counts, by_group = collective_counts(), collective_counts_by_group()
+        peak = torch.cuda.max_memory_allocated()
+        payload = pretrain_state_payload(state, layout)
+        if rank == 0:
+            torch.save({"weight_v": payload["student"]["head.last_layer.weight_v"].float().cpu(),
+                        "center": payload["center"].float().cpu()},
+                       os.path.join(work_dir, "gathered.pt"))
+        del payload
+        digests = {n: hashlib.sha256(p.detach().float().cpu().numpy().tobytes()).hexdigest()
+                   for who, model in (("student", state.student), ("teacher", state.teacher))
+                   for n, p in [(f"{who}.{k}", v) for k, v in model.named_parameters()]
+                   if n.split(".", 1)[1] not in SHARDED_PARAMETERS}
+        # one more step, rank 0's under the profiler (the other rank's beside it)
+        last = lambda: step(state, raws[TP_STEPS], masks[TP_STEPS])
+        wall, busy, top = (device_busy(last)[:3] if rank == 0 else (None, None, None))
+        if rank != 0:
+            last()
+            torch.cuda.synchronize()
+        del state, step, last
+        torch.cuda.empty_cache()
+
+        steps_s = time.time() - t0
+        # ---- the train CLI at model_parallel TP_WORLD: a run and its resume
+        # (without TensorBoard, which the train_cli phase reads back)
+        import ccd_tpu_torch.utils.logging as port_logging
+        port_logging.summary_writer = lambda name: None
+        records = []
+        handler = logging.Handler()
+        handler.emit = lambda record: records.append(record.getMessage())
+        logging.getLogger().addHandler(handler)
+        logging.getLogger().setLevel(logging.INFO)
+        os.chdir(os.path.join(work_dir, "cli"))
+        cli = []
+        for max_iters in (TP_CLI_ITERS, TP_CLI_RESUMED_ITERS):
+            t0 = time.time()
+            out = train.main(["-c", os.path.join(work_dir, "pretrain_mp2.yaml"),
+                              "--synthetic", str(TP_CLI_WORDS), "--max_iters", str(max_iters)])
+            cli.append({"iteration": out["iteration"], "checkpoint": out["checkpoint"],
+                        "last": out["last"], "seconds": time.time() - t0})
+        logging.getLogger().removeHandler(handler)
+        result = {"rank": rank, "layout": [layout.data_index, layout.model_index,
+                                           layout.data_size, layout.model_size],
+                  "backend": torch.distributed.get_backend(), "losses": losses,
+                  "step_ms": step_ms, "kernel_launches": launches,
+                  "collectives_per_step": {k: {"calls": v["calls"] / TP_STEPS,
+                                               "bytes": v["bytes"] / TP_STEPS}
+                                           for k, v in sorted(counts.items())},
+                  "collectives_per_step_by_group": {
+                      k: {"calls": v["calls"] / TP_STEPS, "bytes": v["bytes"] / TP_STEPS}
+                      for k, v in sorted(by_group.items())},
+                  "peak_device_memory_bytes": peak, "replicated_digests": digests,
+                  "profiled_step_wall_ms": wall, "profiled_device_busy_ms": busy,
+                  "profiled_top_kernels": top, "cli": cli, "steps_seconds": steps_s,
+                  "cli_logged_layout": any(TP_LINE in r for r in records),
+                  "cli_resumed": any(f"resuming from checkpoint step {TP_CLI_ITERS}" in r
+                                     for r in records)}
+        with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tensor_parallel_phase(card: str) -> dict:
+    """Tensor parallelism of the DINO head (``mesh.model_parallel`` 2) on
+    the card: the ViT-Small pretraining step (batch 64, ``out_dim`` 65536 as
+    2 x 32768 columns, bf16, severity 5) in TP_WORLD processes sharing
+    ``cuda:0`` over gloo (the card machine has one GPU, and NCCL refuses two
+    ranks on one device), TP_STEPS steps from the weights and raw batches of
+    the same steps run here in one process (the last layer unfrozen, so
+    that its shards move): each step's losses held at TOL_STEP_LOSS_REL, the
+    gathered ``weight_v`` and centre after them at TOL_STEP_GRAD_REL (both
+    accumulate three steps of bf16 logits that the two layouts' head
+    products, 65536 and 32768 columns wide, round apart), the replicated
+    parameters bit for bit equal on both ranks, K1-fwd/K1-bwd/K3 launched as one process
+    launches them and no K2 (the plain CE chain over the shards), the
+    collectives of a step, step and busy ms, each rank's peak; then the
+    ``train`` CLI at model_parallel 2 in both processes (a run and its
+    resume) and here in one process resuming its checkpoint. Returns the
+    launches of both runs."""
+    import yaml
+
+    from ccd_tpu_torch.cli import train
+
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="ccd_chip_smoke_tp_")
+    procs = []
+    try:
+        # ---- one process: the same steps, from the same weights and batches
+        config, state = vit_small_pretrain_state()
+        weight_v0 = state.student.head.last_layer.weight_v.detach().float().clone()
+        inputs = [pretrain_inputs(PRETRAIN_BATCH, seed=4000 + i) for i in range(TP_STEPS + 1)]
+        torch.save({"student": state.student.state_dict(), "teacher": state.teacher.state_dict(),
+                    "raw": [r.cpu() for r, _ in inputs], "masks": [m.cpu() for _, m in inputs]},
+                   os.path.join(work, "shared.pt"))
+        with open(PRETRAIN_CONFIG) as f:
+            cfg = yaml.safe_load(f)
+        cfg["training"].update(steps_per_dispatch=2, show_iters=2)
+        cfg["dataset"]["num_workers"] = 2
+        for mp in (TP_WORLD, 1):
+            cfg["mesh"] = dict(cfg.get("mesh") or {}, model_parallel=mp)
+            with open(os.path.join(work, f"pretrain_mp{mp}.yaml"), "w") as f:
+                yaml.safe_dump(cfg, f)
+        os.makedirs(os.path.join(work, "cli"))
+        step = make_fused_pretrain_step(gt_mask_epochs=30, **tensor_parallel_schedule(config))
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        one_losses, one_ms = [], []
+        for raw, mask in inputs[:TP_STEPS]:
+            metrics, _, ms = run_pretrain_step(step, state, raw, mask,
+                                               "tensor_parallel one process")
+            one_losses.append([metrics[k] for k in ("loss", "mask_loss", "dino_loss")])
+            one_ms.append(ms)
+        one_launches = kernel_counts()
+        one_peak = torch.cuda.max_memory_allocated()
+        if one_launches != {k: v * TP_STEPS for k, v in LAUNCHES_PER_STEP.items()}:
+            raise SystemExit(f"tensor_parallel: the one-process steps launched {one_launches}")
+        weight_v = state.student.head.last_layer.weight_v.detach().float().clone()
+        center = state.center.detach().float().clone()
+        one_wall, one_busy, _, _ = device_busy(lambda: step(state, *inputs[TP_STEPS]))
+        del state, step, inputs
+        torch.cuda.empty_cache()
+
+        # ---- TP_WORLD processes on this card, model_parallel TP_WORLD
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), TP_WORKER_FLAG,
+                                   str(r), work, str(port)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(TP_WORLD)]
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise SystemExit(f"tensor_parallel: worker {r} exited with {p.returncode}:\n"
+                                 f"{log[-4000:]}")
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        gathered = torch.load(os.path.join(work, "gathered.pt"), weights_only=True)
+
+        # ---- one process resumes the model_parallel 2 checkpoint
+        records = []
+        import logging
+        handler = logging.Handler()
+        handler.emit = lambda record: records.append(record.getMessage())
+        logging.getLogger().addHandler(handler)
+        logging.getLogger().setLevel(logging.INFO)
+        cwd = os.getcwd()
+        os.chdir(os.path.join(work, "cli"))
+        try:
+            t_cli = time.time()
+            final = train.main(["-c", os.path.join(work, "pretrain_mp1.yaml"), "--synthetic",
+                                str(TP_CLI_WORDS), "--max_iters", str(TP_CLI_FINAL_ITERS)])
+            final_s = time.time() - t_cli
+        finally:
+            os.chdir(cwd)
+            logging.getLogger().removeHandler(handler)
+        resumed_in_one = any(f"resuming from checkpoint step {TP_CLI_RESUMED_ITERS}" in r
+                             for r in records)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # ---- the gates
+    rank0 = ranks[0]
+    want = {k: v * TP_STEPS for k, v in LAUNCHES_PER_STEP.items()}
+    want.update({"K2-fwd": 0, "K2-bwd": 0})
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks for got, ref in zip(r["losses"], one_losses)
+                   for a, b in zip(got, ref))
+    weight_v_rel = float((gathered["weight_v"] - weight_v.cpu()).norm() / weight_v.norm())
+    moved = float((weight_v - weight_v0).norm() / weight_v0.norm())
+    center_rel = float((gathered["center"] - center.cpu()).norm() / center.norm())
+    problems = []
+    if [r["layout"] for r in ranks] != [[0, i, 1, TP_WORLD] for i in range(TP_WORLD)]:
+        problems.append(f"layouts {[r['layout'] for r in ranks]}")
+    if any(r["kernel_launches"] != want for r in ranks):
+        problems.append(f"launches {[r['kernel_launches'] for r in ranks]}, expected {want}")
+    if not loss_rel <= TOL_STEP_LOSS_REL:
+        problems.append(f"losses differ from one process's by {loss_rel}")
+    if not weight_v_rel <= TOL_STEP_GRAD_REL or not center_rel <= TOL_STEP_GRAD_REL \
+            or not moved > 0:
+        problems.append(f"gathered weight_v / centre differ by {weight_v_rel} / {center_rel} "
+                        f"(weight_v moved {moved})")
+    if any(r["replicated_digests"] != rank0["replicated_digests"] for r in ranks):
+        problems.append("the replicated parameters differ between the ranks")
+    cli = [r["cli"] for r in ranks]
+    if any([c["iteration"] for c in runs] != [TP_CLI_ITERS, TP_CLI_RESUMED_ITERS]
+           or not all(np.isfinite(c["last"]["loss"]) for c in runs) for runs in cli) \
+            or not all(r["cli_logged_layout"] and r["cli_resumed"] for r in ranks):
+        problems.append(f"train CLI at model_parallel {TP_WORLD}: {cli}, logged layout "
+                        f"{[r['cli_logged_layout'] for r in ranks]}, resumed "
+                        f"{[r['cli_resumed'] for r in ranks]}")
+    if final["iteration"] != TP_CLI_FINAL_ITERS or not resumed_in_one \
+            or not np.isfinite(final["last"]["loss"]):
+        problems.append(f"the one-process resume of the model_parallel {TP_WORLD} checkpoint: "
+                        f"{final}, resumed {resumed_in_one}")
+    emit({"phase": "tensor_parallel", "gpu": card, "config": "ccd_pretrain_vit_small.yaml",
+          "problems": problems,
+          "batch": PRETRAIN_BATCH, "out_dim": int(weight_v.shape[0]),
+          "columns_per_rank": int(weight_v.shape[0]) // TP_WORLD, "world": TP_WORLD,
+          "backend": rank0["backend"], "processes_on_one_gpu": TP_WORLD, "steps": TP_STEPS,
+          "losses_model_parallel_2": [r["losses"] for r in ranks],
+          "losses_one_process": one_losses, "loss_rel_diff": loss_rel,
+          "tol_step_loss_rel": TOL_STEP_LOSS_REL,
+          "gathered_weight_v_rel_l2_diff": weight_v_rel, "tol_step_grad_rel": TOL_STEP_GRAD_REL,
+          "gathered_center_rel_l2_diff": center_rel, "weight_v_moved_rel_l2": moved,
+          "replicated_parameters_bit_equal": True,
+          "replicated_parameters": len(rank0["replicated_digests"]),
+          "kernel_launches_per_rank": [r["kernel_launches"] for r in ranks],
+          "kernel_launches_one_process": one_launches,
+          "collectives_per_step": rank0["collectives_per_step"],
+          "collectives_per_step_by_group": rank0["collectives_per_step_by_group"],
+          "collective_bytes_per_step": sum(v["bytes"]
+                                          for v in rank0["collectives_per_step"].values()),
+          "step_ms_model_parallel_2": [r["step_ms"] for r in ranks],
+          "step_ms_one_process": one_ms,
+          "profiled_step_wall_ms": {"model_parallel_2_rank_0": rank0["profiled_step_wall_ms"],
+                                    "one_process": one_wall},
+          "profiled_device_busy_ms": {"model_parallel_2_rank_0":
+                                      rank0["profiled_device_busy_ms"],
+                                      "one_process": one_busy},
+          "profiled_top_kernels_rank_0": rank0["profiled_top_kernels"],
+          "peak_device_memory_bytes": {"model_parallel_2": [r["peak_device_memory_bytes"]
+                                                            for r in ranks],
+                                       "one_process": one_peak},
+          "train_cli": {"model_parallel_2": cli,
+                        "one_process_resume": {"iteration": final["iteration"],
+                                               "last": final["last"], "seconds": final_s}},
+          "worker_steps_seconds": [r["steps_seconds"] for r in ranks],
+          "seconds": time.time() - t0})
+    if problems:
+        raise SystemExit("tensor_parallel: " + "; ".join(problems))
+    return {"tensor_parallel": {k: sum(r["kernel_launches"][k] for r in ranks) for k in want},
+            "tensor_parallel_one_process": one_launches}
 
 
 def native_reader_phase(card: str) -> None:
@@ -3039,6 +3351,7 @@ def main() -> None:
     remat_launches = remat_phase(card)         # and before each of its two runs
     attention_launches = last_selfattention_phase(card)
     dp_launches = data_parallel_phase(card)   # counts set to 0 before each of its steps
+    tp_launches = tensor_parallel_phase(card)  # and before each of its runs, in each process
     augmentation_chains(card)
     native_reader_phase(card)
     keep = tempfile.mkdtemp(prefix="ccd_chip_smoke_keep_")
@@ -3062,7 +3375,7 @@ def main() -> None:
     by_path = {"pretrain": train_launches, "finetune": ft_launches,
                "pretrain_vit_base": base_launches, "pretrain_severity_2": sev2_launches,
                "finetune_abinet": abinet_launches, "pretrain_sgd_lars": opt_launches,
-               "pretrain_remat": remat_launches, **dp_launches}
+               "pretrain_remat": remat_launches, **dp_launches, **tp_launches}
     k1_fwd = {"evaluation": eval_launches, "calibrate": calib_launches["K1-fwd"],
               "last_selfattention": attention_launches,
               **{path: n["K1-fwd"] for path, n in by_path.items()},
@@ -3122,4 +3435,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 5 and sys.argv[1] == TP_WORKER_FLAG:
+        tensor_parallel_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    else:
+        main()

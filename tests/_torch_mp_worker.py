@@ -12,11 +12,18 @@ rank that the test reads:
   global batch (``steps_inputs.npz``), their losses and final states;
 * ``cli``: sharded ``evaluate_benchmarks``, the meters' and the accuracy's
   synchronisation, the ``mesh`` refusals, a resume at another world size,
-  ``cli.train`` twice (a run and its resume) and ``cli.collective_audit``.
+  ``cli.train`` twice (a run and its resume) and ``cli.collective_audit``;
+* ``tp``: tensor parallelism (``mesh.model_parallel`` = TP_MP) at world 4
+  (2 data ranks x 2 model ranks) or 2 (1 x 2): the refusals, the steps on
+  this data rank's share of the global batch (``tp_inputs.npz`` in the
+  parent of ``out_dir``), the gathered checkpoint, a resume from the test
+  process's one-process checkpoint (world 2), a lars step, a BatchNorm
+  DINO head, and ``cli.collective_audit`` (world 4).
 
 The test process imports this module too, for the constants and for
-:func:`pretrain_run` / :func:`finetune_run`, which it runs without a group
-on the whole batch (the 1-rank reference).
+:func:`pretrain_run` / :func:`finetune_run` / :func:`tp_state` /
+:func:`tp_steps` / :func:`bn_head_run`, which it runs without a group on the
+whole batch (the 1-rank reference).
 
 Invoked as: python _torch_mp_worker.py <suite> <out_dir>
 """
@@ -52,6 +59,10 @@ FINETUNE_SCHEDULE = dict(base_lr=1e-3, min_lr=1e-5, total_iters=20, warmup_iters
 EVAL_WORDS = 9                           # odd: the two shards differ in size
 WORLD = 2
 WORKER_TIMEOUT_S = 300
+TP_MP = 2                                # the model axis of the ``tp`` suite
+BN_HEAD = dict(in_dim=64, out_dim=OUT_DIM, use_bn=True, norm_last_layer=False,
+               hidden_dim=32, bottleneck_dim=16)   # the BatchNorm DINO head's widths
+MP1_CHECKPOINT = "tp_mp1_ckpt.pt"        # the test process's, in the parent of out_dir
 
 
 def free_port() -> int:
@@ -60,15 +71,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_workers(suite: str, out_dir: str):
-    """Two worker processes of ``suite`` in one gloo group over localhost."""
+def launch_workers(suite: str, out_dir: str, world: int = WORLD):
+    """``world`` worker processes of ``suite`` in one gloo group over
+    localhost, as ``torchrun`` on one node would start them."""
     port = free_port()
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-               WORLD_SIZE=str(WORLD), OMP_NUM_THREADS="1")
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
     return [subprocess.Popen([sys.executable, os.path.abspath(__file__), suite, out_dir],
                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(WORLD)]
+            for r in range(world)]
 
 
 def wait_for(procs):
@@ -156,6 +168,188 @@ def finetune_run(arrays, group=None, process=0, count=1):
     return np.asarray(losses), {k: v.numpy().copy() for k, v in model.state_dict().items()}
 
 
+def tp_state(arrays, layout=None, optimizer="adamw"):
+    """The handed-over pretraining state (as :func:`pretrain_run` builds it),
+    sharded over ``layout``'s model axis."""
+    import torch
+
+    from ccd_tpu_torch.models.pretrain import CCDPretrainModel
+    from ccd_tpu_torch.parallel.mesh import Layout
+    from ccd_tpu_torch.training.pretrain_step import init_pretrain_state, shard_pretrain_state
+
+    layout = Layout.of(layout)
+    student = CCDPretrainModel(arch="vit_micro", out_dim=OUT_DIM, with_seg_head=True,
+                               norm_last_layer=False, drop_path_rate=0.0)
+    teacher = CCDPretrainModel(arch="vit_micro", out_dim=OUT_DIM, with_seg_head=False)
+    state = init_pretrain_state(student, teacher, optimizer=optimizer,
+                                process=layout.data_index)
+    for prefix, module in (("student.", student), ("teacher.", teacher)):
+        module.load_state_dict({k[len(prefix):]: torch.from_numpy(v) for k, v in arrays.items()
+                                if k.startswith(prefix)}, strict=True)
+    state.center = torch.from_numpy(arrays["center"].copy())
+    return shard_pretrain_state(state, layout)
+
+
+def tp_steps(state, arrays, layout=None, steps=range(N_STEPS), **schedule):
+    """Port pretraining steps under ``layout`` on the global batches
+    ``steps`` (this data rank's share); the (global) losses, one row a step."""
+    import torch
+
+    from ccd_tpu_torch.losses import teacher_temp_schedule
+    from ccd_tpu_torch.parallel.mesh import Layout, shard_batch
+    from ccd_tpu_torch.training.pretrain_step import make_pretrain_step
+
+    layout = Layout.of(layout)
+    step = make_pretrain_step(teacher_temps=teacher_temp_schedule(*TEACHER_TEMPS), group=layout,
+                              **dict(PRETRAIN_SCHEDULE, **schedule))
+    losses = []
+    for i in steps:
+        images, masks, theta = shard_batch(
+            tuple(torch.from_numpy(arrays[f"pretrain_{k}_{i}"])
+                  for k in ("images", "masks", "theta")), layout.data_index, layout.data_size)
+        state, m = step(state, images, masks, theta)
+        losses.append([float(m[k]) for k in ("loss", "mask_loss", "dino_loss")])
+    return np.asarray(losses)
+
+
+def bn_head_run(layout=None):
+    """One forward and backward of a ``DINOHead(use_bn=True)`` (BN_HEAD) from
+    seeded weights on seeded char vectors of GLOBAL_BATCH samples, this data
+    rank's share, through the DINO CE, its gradients reduced as the step
+    reduces them: (global loss, {name: whole gradient}, {name: running
+    statistic})."""
+    import torch
+
+    from ccd_tpu_torch.losses import dino_char_loss
+    from ccd_tpu_torch.models.heads import DINOHead
+    from ccd_tpu_torch.models.layers import set_batchnorm_group
+    from ccd_tpu_torch.parallel.mesh import Layout, all_reduce_sum, gather_rows, shard_rows
+    from ccd_tpu_torch.training.pretrain_step import _reduce_gradients
+
+    layout = Layout.of(layout)
+    head = DINOHead(**BN_HEAD)
+    head.reset_parameters(torch.Generator().manual_seed(11))
+    if layout.model is not None:
+        head.shard_last_layer(layout.model_index, layout.model_size, layout.model)
+    set_batchnorm_group(head, layout.data)
+    gen = torch.Generator().manual_seed(12)
+    b, t, k = GLOBAL_BATCH, 26, OUT_DIM
+    x = torch.randn(2, b, t, BN_HEAD["in_dim"], generator=gen)
+    teacher = torch.randn(2, b, t, k, generator=gen)
+    center = 0.1 * torch.randn(1, k, generator=gen)
+    valid = torch.rand(b, t, generator=gen) < 0.6
+    mine = lambda v, dim: shard_rows(v, layout.data_index, layout.data_size, dim)
+    cols = lambda v: shard_rows(v, layout.model_index, layout.model_size, v.ndim - 1)
+    logits = head(mine(x, 1).flatten(0, 1))
+    loss = dino_char_loss(logits, cols(mine(teacher, 1).flatten(0, 1)), mine(valid, 0),
+                          cols(center), 0.04, 0.1, group=layout.data, model_group=layout.model)
+    named = dict(head.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    sharded = [layout.model is not None and n.startswith("last_layer.") for n in named]
+    grads = _reduce_gradients(list(grads), sharded, layout)
+    grads = {n: gather_rows(g, layout.model, "test") if f else g
+             for n, g, f in zip(named, grads, sharded)}
+    stats = {n: v.clone() for n, v in head.state_dict().items() if "running" in n}
+    return float(all_reduce_sum(loss.detach().reshape(1), layout.data, "test")[0]), grads, stats
+
+
+def _tp_suite(out_dir, group, me, n):
+    import contextlib
+    import io
+
+    import torch
+
+    from ccd_tpu_torch.checkpoints.torch_io import generator_payload, restore_generators
+    from ccd_tpu_torch.cli import collective_audit
+    from ccd_tpu_torch.losses import teacher_temp_schedule
+    from ccd_tpu_torch.models.heads import DINOHead
+    from ccd_tpu_torch.parallel.mesh import (collective_counts_by_group, pretrain_mesh,
+                                             reset_collective_counts, world)
+    from ccd_tpu_torch.training.pretrain_step import (make_pretrain_step,
+                                                      pretrain_state_payload,
+                                                      restore_pretrain_state)
+
+    parent = os.path.dirname(out_dir)
+    arrays = dict(np.load(os.path.join(parent, "tp_inputs.npz")))
+    out = {"rank": me}
+    # ---- refusals before any group is made: JAX's divisor, and a model group
+    # across nodes
+    refusals = {"divisor": _refused(lambda: pretrain_mesh(None, 3), ValueError,
+                                    f"model_parallel=3 must divide device count {n}")}
+    os.environ["LOCAL_WORLD_SIZE"] = "1"
+    refusals["span_hosts"] = _refused(lambda: pretrain_mesh(None, TP_MP), ValueError,
+                                      "would span hosts")
+    os.environ["LOCAL_WORLD_SIZE"] = str(n)
+    layout = pretrain_mesh(None, TP_MP)
+    out["layout"] = [layout.data_index, layout.model_index, layout.data_size,
+                     layout.model_size, world(layout.data), world(layout.model)]
+    refusals["out_dim"] = _refused(
+        lambda: DINOHead(8, OUT_DIM - 1).shard_last_layer(layout.model_index, TP_MP,
+                                                          layout.model),
+        ValueError, "last dim not divisible")
+    refusals["fused_ce"] = _refused(
+        lambda: make_pretrain_step(teacher_temps=teacher_temp_schedule(*TEACHER_TEMPS),
+                                   use_fused_ce=True, group=layout, **PRETRAIN_SCHEDULE),
+        ValueError, "use_fused_ce=True")
+    gen = [torch.Generator().manual_seed(me)]
+    other = {"world_size": layout.data_size + 1,
+             "generators": [[gen[0].get_state()]] * (layout.data_size + 1)}
+    refusals["other_data_ranks"] = _refused(lambda: restore_generators(gen, other, layout.data),
+                                            ValueError, "another world size")
+    # as many data ranks (fewer than the processes): accepted
+    restore_generators(gen, generator_payload(gen, layout.data), layout.data)
+    out["refusals"] = refusals
+
+    # ---- three steps, the gathered checkpoint and this rank's own tensors
+    state = tp_state(arrays, layout)
+    reset_collective_counts()
+    losses = tp_steps(state, arrays, layout)
+    out["groups"] = collective_counts_by_group()
+    payload = pretrain_state_payload(state, layout)
+    if me == 0:
+        torch.save(payload, os.path.join(out_dir, "tp_ckpt.pt"))
+    local = {**{f"student.{k}": v for k, v in state.student.state_dict().items()},
+             **{f"teacher.{k}": v for k, v in state.teacher.state_dict().items()},
+             "center": state.center}
+    arrays_out = {"losses": losses, **{k: v.numpy() for k, v in local.items()}}
+    if layout.data_size == 1:
+        # ---- the next step from here, and from the one-process checkpoint
+        arrays_out["next_loss"] = tp_steps(state, arrays, layout, steps=[N_STEPS])
+        path = os.path.join(parent, MP1_CHECKPOINT)
+        deadline = time.time() + WORKER_TIMEOUT_S
+        while not os.path.exists(path) and time.time() < deadline:
+            time.sleep(0.2)
+        resumed = tp_state(arrays, layout)
+        restore_pretrain_state(resumed, torch.load(path, weights_only=True), layout)
+        arrays_out["resumed_next_loss"] = tp_steps(resumed, arrays, layout, steps=[N_STEPS])
+    # ---- one lars step (warm-up off: the learning rate is not 0)
+    lars = tp_state(arrays, layout, "lars")
+    arrays_out["lars_loss"] = tp_steps(lars, arrays, layout, steps=[0], warmup_iters=0)
+    lars_payload = pretrain_state_payload(lars, layout)
+    if me == 0:
+        torch.save({"trace": lars_payload["opt_state"]["trace"],
+                    "student": lars_payload["student"], "center": lars_payload["center"]},
+                   os.path.join(out_dir, "tp_lars.pt"))
+    # ---- the BatchNorm head
+    bn_loss, bn_grads, bn_stats = bn_head_run(layout)
+    if me == 0:
+        torch.save({"loss": bn_loss, "grads": bn_grads, "stats": bn_stats},
+                   os.path.join(out_dir, "tp_bn_head.pt"))
+    np.savez(os.path.join(out_dir, f"tp_rank{me}.npz"), **arrays_out)
+    if layout.data_size > 1:
+        # ---- the collective audit at (data, model) = (2, 2) and at
+        # model_parallel 1 over the same world (rank 0 prints)
+        for mp in (TP_MP, 1):
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                audit = collective_audit.main(["-c", SMOKE_PRETRAIN, "--arch", "vit_micro",
+                                               "--batch", "2", "--steps", "1",
+                                               "--model_parallel", str(mp), "--device", "cpu"])
+            out[f"audit_mp{mp}"], out[f"audit_mp{mp}_printed"] = audit, printed.getvalue()
+    with open(os.path.join(out_dir, f"tp_rank{me}.json"), "w") as f:
+        json.dump(out, f, default=float)
+
+
 def _steps_suite(out_dir, group, me, n):
     arrays = dict(np.load(os.path.join(out_dir, "steps_inputs.npz")))
     losses, student, teacher, center = pretrain_run(arrays, group, me, n)
@@ -217,13 +411,13 @@ def _cli_suite(out_dir, group, me, n):
         "fewer_devices": _refused(lambda: data_mesh(n - 1), ValueError, "processes would have"),
         "more_devices": _refused(lambda: data_mesh(n + 1), ValueError,
                                  f"num_devices={n + 1} > available {n}"),
-        "model_parallel": _refused(lambda: pretrain_mesh(None, 2), NotImplementedError,
-                                   "ROADMAP M11b"),
+        "model_parallel": _refused(lambda: pretrain_mesh(None, 3), ValueError,
+                                   f"model_parallel=3 must divide device count {n}"),
         "other_world_size": _refused(
             lambda: restore_generators(gen, generator_payload(gen), group), ValueError,
             "another world size"),
-        "accepted": data_mesh(n) is group and pretrain_mesh(None, 1) is group
-        and pretrain_mesh(n, None) is group}
+        "accepted": data_mesh(n) is group and pretrain_mesh(None, 1).data is group
+        and pretrain_mesh(n, None).world is group}
     # ---- the train CLI: a run, then its resume, both ranks in one directory
     port_logging.summary_writer = lambda name: None  # TensorBoard is tested elsewhere
     run_dir = os.path.join(out_dir, "cli_train")
@@ -263,7 +457,7 @@ def main():
 
     _device, group = init_distributed(torch.device("cpu"))
     me, n = rank(group), world(group)
-    {"steps": _steps_suite, "cli": _cli_suite}[suite](out_dir, group, me, n)
+    {"steps": _steps_suite, "cli": _cli_suite, "tp": _tp_suite}[suite](out_dir, group, me, n)
     torch.distributed.destroy_process_group()
 
 

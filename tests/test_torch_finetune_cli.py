@@ -81,27 +81,40 @@ def test_train_finetune_cli_trains_evaluates_checkpoints_and_resumes(tmp_path, m
 
 
 @pytest.mark.parametrize("mesh,error,words", [
-    ({"model_parallel": 2}, NotImplementedError, "ROADMAP M11b"),
+    ({"model_parallel": 2}, None, None),
     ({"num_devices": 2}, ValueError, "num_devices=2 > available 1"),
     ({"num_devices": 0}, ValueError, "processes would have no data")],
     ids=["model_parallel_2", "more_devices", "fewer_devices"])
 def test_train_finetune_cli_refuses_a_mesh_it_cannot_lay(tmp_path, monkeypatch, mesh, error,
-                                                         words):
+                                                         words, recorded_writers):
     """The JAX CLI lays a data mesh over ``mesh.num_devices``
     (train_finetune.py:244): a number other than the world size (1 here)
-    is refused, and so is ``mesh.model_parallel`` above 1, before anything
-    is built."""
+    is refused before anything is built. It never reads
+    ``mesh.model_parallel`` (a recognizer has no wide head to split), so a
+    configuration shared with pretraining that sets it to 2 trains here,
+    with the losses of the same run without it."""
     import yaml
-    monkeypatch.chdir(tmp_path)
     with open(SMOKE) as f:
         cfg = yaml.safe_load(f)
-    cfg["mesh"] = mesh
-    path = tmp_path / "finetune.yaml"
-    path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(error, match=words):
-        train_finetune.main(["-c", str(path), "--synthetic", "8", "--max_iters", "1",
-                             "--device", "cpu"])
-    assert not (tmp_path / "saved_models").exists()
+    runs = [("with_mesh", mesh)] + ([("without", {})] if error is None else [])
+    for name, run_mesh in runs:
+        run_dir = tmp_path / name
+        run_dir.mkdir()
+        monkeypatch.chdir(run_dir)
+        path = run_dir / "finetune.yaml"
+        path.write_text(yaml.safe_dump(dict(cfg, mesh=run_mesh)))
+        args = ["-c", str(path), "--synthetic", "16", "--batch_size", "4", "--max_iters", "2",
+                "--device", "cpu"]
+        if error is not None:
+            with pytest.raises(error, match=words):
+                train_finetune.main(args)
+            assert not (run_dir / "saved_models").exists()
+            return
+        assert train_finetune.main(args)["iteration"] == 2
+    with_mesh, without = ([v for tag, v, _ in w.scalars if tag == "metric/train_loss"]
+                          for w in recorded_writers)
+    assert len(with_mesh) == 2 and all(math.isfinite(v) for v in with_mesh)
+    assert with_mesh == without
 
 
 def _abinet_config(tmp_path) -> str:

@@ -6,8 +6,8 @@ words (shards of five and four) returns the counters of one process's run
 over all nine (the normalised edit distance, a sum of fractions, to 1e-12); ``MetricLogger`` sums counts and totals over the ranks and
 ``TextAccuracy`` takes the largest inference time; the ``mesh`` keys are
 refused as the JAX package's ``data_mesh`` / ``pretrain_mesh`` would have
-them (a ``num_devices`` other than the world size, ``model_parallel`` 2
-naming ROADMAP M11b), and a checkpoint's generator states of another world
+them (a ``num_devices`` other than the world size, a ``model_parallel``
+that does not divide it), and a checkpoint's generator states of another world
 size are refused; ``cli.train`` at world size 2 writes one checkpoint
 directory, from rank 0, whose payload holds both ranks' generator states,
 and a second run resumes from it; ``cli.collective_audit`` prints one JSON

@@ -237,7 +237,7 @@ def test_train_cli_refuses_an_optimizer_it_has_not_ported(tmp_path, monkeypatch,
         assert "resuming from checkpoint step 1" in log
 
 
-MESH_REFUSALS = [({"model_parallel": 2}, NotImplementedError, "ROADMAP M11b"),
+MESH_REFUSALS = [({"model_parallel": 2}, ValueError, "model_parallel=2 must divide device count 1"),
                  ({"num_devices": 2}, ValueError, "num_devices=2 > available 1"),
                  ({"num_devices": 0}, ValueError, "processes would have no data")]
 
@@ -245,10 +245,11 @@ MESH_REFUSALS = [({"model_parallel": 2}, NotImplementedError, "ROADMAP M11b"),
 @pytest.mark.parametrize("mesh,error,words", MESH_REFUSALS,
                          ids=["model_parallel_2", "more_devices", "fewer_devices"])
 def test_train_cli_refuses_a_mesh_it_cannot_lay(tmp_path, monkeypatch, mesh, error, words):
-    """``mesh.model_parallel`` above 1 (tensor parallelism, not ported) and
-    a ``mesh.num_devices`` other than the world size (1 here, one process)
-    are refused before anything is built, as the JAX CLI's ``pretrain_mesh``
-    refuses a mesh it cannot lay (tests/test_train_steps.py)."""
+    """A ``mesh.model_parallel`` that does not divide the world size (1
+    here, one process; JAX's own divisor refusal) and a
+    ``mesh.num_devices`` other than the world size are refused before
+    anything is built, as the JAX CLI's ``pretrain_mesh`` refuses a mesh
+    it cannot lay (tests/test_train_steps.py)."""
     import yaml
 
     from ccd_tpu_torch.cli.train import main
