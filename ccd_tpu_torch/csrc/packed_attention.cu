@@ -64,14 +64,36 @@
 // K and V rows of a head are read once per 128-row tile; the tiles of one
 // head are neighbours in the grid, so the repeats are served by the L2 cache.
 //
-// fp32 kernel: scalar FMA, one query row per thread, K/V streamed through
-// shared memory in 32-key chunks, bq and bv added as they are loaded and bk
-// dropped, as in the bf16 kernel, so both save the same log-sum-exp. Exact
-// fp32 arithmetic (no TF32).
+// fp32 kernel (exact fp32, no TF32; its pieces in attention_f32.cuh). What
+// bounds it on an H100: the fp32 pipe. At (288, 256, 384, 6) its 29.0 GFLOP
+// take 0.433 ms at 67 TFLOP/s, its 453 MB 0.135 ms at 3.35 TB/s. The
+// kernel it replaces gave each thread one query row and read one operand of
+// every FMA from shared memory, so shared memory set the pace (32 % of the
+// bound), and it spilled. This one is FlashAttention-2's structure on the
+// fp32 pipe:
+//   * 128 threads per 64 query rows (any S % 64 == 0); Q + bq staged once,
+//     d-major, so a thread's 4 rows at one d are one 16-byte load;
+//   * one K and one V chunk of 64 keys in shared memory (swizzled rows),
+//     filled by 16-byte `cp.async.cg` copies: V of chunk j lands while S of
+//     chunk j is computed, K of chunk j + 1 while O += P V of chunk j is;
+//     bv is added in place by the thread that copied each piece. 64 KB a
+//     block at D = 64, so 3 blocks (12 warps) an SM (two stages of both,
+//     96 KB and 2 blocks, measured slower on the card);
+//   * S = Q K^T and O += P V as register-tiled outer products: a thread owns
+//     4 rows x 8 keys of S and 4 rows x D/8 columns of O: per 4 steps of d,
+//     12 16-byte loads from shared memory feed 128 FMAs of S, and per key
+//     1 + D/32 loads feed D/2 FMAs of O;
+//   * online softmax in log2 units (the scale times log2(e) in one multiply,
+//     `ex2.approx`), row maxima over the 8 threads that share a row by
+//     __shfl_xor_sync; P passes to O += P V through this warp's own rows of
+//     a shared tile, with __syncwarp only;
+//   * bk dropped and each row's log-sum-exp saved as the bf16 kernel saves
+//     them; no atomics, so two calls give the same bits.
 //
 // Plain C interface, loaded with ctypes; see ccd_tpu_torch/ops/flash_attention.py.
 
 #include "attention_common.cuh"
+#include "attention_f32.cuh"
 #include "attention_sm90.cuh"
 
 namespace {
@@ -276,93 +298,123 @@ attention_fwd_sm90(const FwdArgs<bf16> a, int S, float scale_log2e) {
     }
 }
 
-constexpr int F32_ROWS = 64;  // query rows (= threads) per block, fp32 kernel
-constexpr int F32_KEYS = 32;  // keys per shared-memory chunk
-constexpr int F32_STEP = 8;   // keys per softmax rescale
-
-// grid (S / 64, H, B), block 64 threads; thread r owns query row r of the tile.
+// Dynamic shared memory of the fp32 kernel: Q + bq d-major, the tile of
+// probabilities, a K chunk and a V + bv chunk.
 template <int D>
-__global__ void __launch_bounds__(F32_ROWS)
-attention_fwd_f32(const FwdArgs<float> a, int S, float scale) {
-    __shared__ __align__(16) float Ks[F32_KEYS][D];
-    __shared__ __align__(16) float Vs[F32_KEYS][D];
+constexpr size_t f32_smem_bytes() {
+    return (size_t)(D * F32_TILE + F32_TILE * F32_TILE + 2 * F32_TILE * D) * 4;
+}
+
+// grid (S / 64, H, B), block 128 threads, dynamic shared memory
+// f32_smem_bytes<D>(). Thread (ty, tx) (attention_f32.cuh) owns query rows
+// 4ty..4ty+3 of the tile: their running maxima and sums, and their O
+// columns 4(tx + 8h)..+3; of each 64-key chunk the keys tx + 8j. One K and
+// one V chunk in shared memory: V of chunk j lands while S of chunk j is
+// computed, K of chunk j + 1 while O += P V of chunk j is.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, D == 64 ? 3 : 4)
+attention_fwd_f32(const FwdArgs<float> a, int S, float scale_log2e) {
+    extern __shared__ float4 smem_f4[];
+    float* const qt = reinterpret_cast<float*>(smem_f4);  // D x 64, d-major
+    float* const pt = qt + D * F32_TILE;                  // 64 keys x 64 rows
+    float* const kc = pt + F32_TILE * F32_TILE;           // 64 keys x D
+    float* const vc = kc + F32_TILE * D;                  // 64 keys x D
+
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int row = tile * F32_ROWS + threadIdx.x;
-    const float* bq = head_bias(a.bq, h, D);
+    const int lane = threadIdx.x & 31;
+    const int tx = lane & 7, ty = (threadIdx.x >> 5) * 4 + (lane >> 3);
+    const size_t ks = a.k.row_stride, vs = a.v.row_stride;
+    const float* kg = a.k.at(b, h, 0);
+    const float* vg = a.v.at(b, h, 0);
     const float* bv = head_bias(a.bv, h, D);
+    const int chunks = S / F32_TILE;
+    const ChunkCopy<D> copy;
 
-    float q[D], o[D];
-    {
-        const float* qp = a.q.at(b, h, row);
+    copy.issue(kc, kg, ks);
+    cp_async_commit();
+    stage_dmajor<D>(qt, a.q.at(b, h, (size_t)tile * F32_TILE), a.q.row_stride,
+                    head_bias(a.bq, h, D));
+
+    float o[4][D / 8];
+    zero(o);
+    float m[4], l[4];  // running maxima (log2 units) and this thread's share of the sums
 #pragma unroll
-        for (int d = 0; d < D; d += 4) {
-            float4 v = __ldg(reinterpret_cast<const float4*>(qp + d));
-            if (bq != nullptr) {
-                float4 bb = __ldg(reinterpret_cast<const float4*>(bq + d));
-                v.x += bb.x; v.y += bb.y; v.z += bb.z; v.w += bb.w;
-            }
-            q[d] = v.x; q[d + 1] = v.y; q[d + 2] = v.z; q[d + 3] = v.w;
-            o[d] = o[d + 1] = o[d + 2] = o[d + 3] = 0.f;
-        }
-    }
-    float m = -INFINITY, l = 0.f;
+    for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
 
-    for (int k0 = 0; k0 < S; k0 += F32_KEYS) {
-        __syncthreads();  // the previous chunk is no longer read
-        for (int i = threadIdx.x; i < F32_KEYS * (D / 4); i += F32_ROWS) {
-            const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-            const float4 kv = __ldg(reinterpret_cast<const float4*>(a.k.at(b, h, k0 + r) + c));
-            float4 vv = __ldg(reinterpret_cast<const float4*>(a.v.at(b, h, k0 + r) + c));
-            if (bv != nullptr) {
-                const float4 vb = __ldg(reinterpret_cast<const float4*>(bv + c));
-                vv.x += vb.x; vv.y += vb.y; vv.z += vb.z; vv.w += vb.w;
-            }
-            *reinterpret_cast<float4*>(&Ks[r][c]) = kv;
-            *reinterpret_cast<float4*>(&Vs[r][c]) = vv;
-        }
-        __syncthreads();
-        for (int kk = 0; kk < F32_KEYS; kk += F32_STEP) {
-            float s[F32_STEP];
+    for (int j = 0; j < chunks; ++j) {
+        cp_async_wait<0>();  // this thread's copies of K chunk j have landed
+        __syncthreads();     // everyone's (and Q); the V chunk is no longer read
+        copy.issue(vc, vg + (size_t)j * F32_TILE * vs, vs);
+        cp_async_commit();
+
+        float s[4][8];
+        zero(s);
+        mm_nt<D, 8>(s, qt, kc, ty, tx);
+
+        // online softmax in log2 units: x = s * scale * log2(e), p = 2^(x - m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
             float mx = -INFINITY;
 #pragma unroll
-            for (int j = 0; j < F32_STEP; ++j) {
-                float acc = 0.f;
-#pragma unroll
-                for (int d = 0; d < D; ++d) acc = fmaf(q[d], Ks[kk + j][d], acc);
-                s[j] = acc * scale;
-                mx = fmaxf(mx, s[j]);
+            for (int k = 0; k < 8; ++k) {
+                s[i][k] *= scale_log2e;
+                mx = fmaxf(mx, s[i][k]);
             }
-            const float mn = fmaxf(m, mx);
-            const float alpha = expf(m - mn);
-            m = mn;
-            l *= alpha;
+            const float mn = fmaxf(m[i], row_max8(mx));
+            const float alpha = exp2_ftz(m[i] - mn);
+            m[i] = mn;
+            l[i] *= alpha;
 #pragma unroll
-            for (int d = 0; d < D; ++d) o[d] *= alpha;
+            for (int c = 0; c < D / 8; ++c) o[i][c] *= alpha;
 #pragma unroll
-            for (int j = 0; j < F32_STEP; ++j) {
-                const float p = expf(s[j] - m);
-                l += p;
-#pragma unroll
-                for (int d = 0; d < D; ++d) o[d] = fmaf(p, Vs[kk + j][d], o[d]);
+            for (int k = 0; k < 8; ++k) {
+                s[i][k] = exp2_ftz(s[i][k] - mn);
+                l[i] += s[i][k];
             }
         }
+        // P through this warp's own rows of the tile
+        store_transposed(pt, s, ty, tx);
+
+        cp_async_wait<0>();  // this thread's copies of V chunk j have landed
+        if (bv != nullptr) copy.add_bias(vc, bv);
+        __syncthreads();     // everyone's; the K chunk is no longer read
+        if (j + 1 < chunks) copy.issue(kc, kg + (size_t)(j + 1) * F32_TILE * ks, ks);
+        cp_async_commit();
+        mm_nn<D, F32_TILE>(o, pt, vc, ty, tx);  // O += P V
     }
-    const float inv = 1.f / l;
-    if (a.lse != nullptr) a.lse[((size_t)b * gridDim.y + h) * S + row] = (m + logf(l)) * LOG2E;
-    float* op = a.o.at(b, h, row);
+
+    float inv[4];
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-        *reinterpret_cast<float4*>(op + d) =
-            make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
+    for (int i = 0; i < 4; ++i) {
+        l[i] = row_sum8(l[i]);
+        inv[i] = 1.f / l[i];
     }
+    if (a.lse != nullptr && tx == 0) {
+        float* lse = a.lse + ((size_t)b * gridDim.y + h) * S + (size_t)tile * F32_TILE + 4 * ty;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) lse[i] = m[i] + log2f(l[i]);
+    }
+    store_tile_rows<D>(a.o, b, h, (size_t)tile * F32_TILE, o, inv, ty, tx);
 }
 
 template <int D>
 int launch_f32(const FwdArgs<float>& a, int B, int S, int H, float scale,
                cudaStream_t stream) {
-    dim3 grid(S / F32_ROWS, H, B);
-    attention_fwd_f32<D><<<grid, F32_ROWS, 0, stream>>>(a, S, scale);
+    static bool ready[MAX_DEVICES] = {};
+    cudaError_t err = allow_smem(attention_fwd_f32<D>, f32_smem_bytes<D>(), ready);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(S / F32_TILE, H, B);
+    attention_fwd_f32<D><<<grid, F32_THREADS, f32_smem_bytes<D>(), stream>>>(a, S,
+                                                                             scale * LOG2E);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int attributes_f32(int* out) {
+    static bool ready[MAX_DEVICES] = {};
+    const cudaError_t err = allow_smem(attention_fwd_f32<D>, f32_smem_bytes<D>(), ready);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_attributes(attention_fwd_f32<D>, F32_THREADS, f32_smem_bytes<D>(), out);
 }
 
 // Allows the bf16 kernel its dynamic shared memory, once per device.
@@ -494,5 +546,12 @@ extern "C" int flash_attention_forward(const void* q, const void* k, const void*
 extern "C" int attention_forward_attributes(int D, int wide, int* out) {
     if (D == 64) return wide ? attributes_sm90<64, 2>(out) : attributes_sm90<64, 1>(out);
     if (D == 32) return wide ? attributes_sm90<32, 2>(out) : attributes_sm90<32, 1>(out);
+    return -1;
+}
+
+// The same for the fp32 kernel (64-row tiles) for head dim D (32 or 64).
+extern "C" int attention_forward_f32_attributes(int D, int* out) {
+    if (D == 64) return attributes_f32<64>(out);
+    if (D == 32) return attributes_f32<32>(out);
     return -1;
 }

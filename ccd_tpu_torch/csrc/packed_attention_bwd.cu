@@ -72,12 +72,35 @@
 // (any S % 64 == 0 runs). The gradients go out through this warp's rows of
 // the Q (dq) or K and V (dk, dv) tiles and then in 16-byte rows.
 //
-// fp32 kernels: scalar FMA, one row per thread, exact fp32 (no TF32), the
-// same contract: they read lse and delta instead of recomputing them.
+// fp32 kernels (exact fp32, no TF32; their pieces in attention_f32.cuh), the
+// same two kernels in the same order with the same contract (lse and delta
+// read, not recomputed). What bounds them on an H100: the fp32 pipe. At
+// (128, 256, 384, 6) the 5 products of the bound take 32.2 GFLOP, 0.481 ms at
+// 67 TFLOP/s (the split design runs 7: 0.673 ms), against 0.105 ms for its
+// 352 MB. The kernels they replace gave each thread one row and read one
+// operand of every FMA from shared memory (9 % of the bound) and spilled.
+// These are register-tiled, as the fp32 forward:
+//   * one block of 128 threads per 64 own rows (dq: queries; dk/dv: keys),
+//     their two operands staged once, d-major (dq: Q + bq and dO; dk/dv: K
+//     and V); the other side streams in 32-row chunks through 2 stages
+//     filled by 16-byte `cp.async` copies (dq: K and V; dk/dv: Q, + bq in
+//     place, and dO). 72 KB a block at D = 64, so 3 blocks an SM (64-row
+//     chunks, 112 KB and 2 blocks, measured slower on the card);
+//   * every product is a register-tiled outer product: a thread owns 4 own
+//     rows x 4 other rows of S, dP (or their transposes) and 4 rows x D/8
+//     columns of dQ, or of dK and dV;
+//   * dq: S = (Q + bq) K^T and dP = dO V^T, dS = P (dP - delta) scale with P
+//     from the saved lse, then dQ += dS K with dS through this warp's rows
+//     of a shared tile (__syncwarp only); delta = rowsum(dO (O - bv)) is
+//     computed first and written for the second kernel;
+//   * dk/dv: S^T and dP^T from the staged K and V, P^T and dS^T from each
+//     query's lse and delta, then dV += P^T dO and dK += dS^T (Q + bq)
+//     through the same tile.
 //
 // Plain C interface, loaded with ctypes; see ccd_tpu_torch/ops/flash_attention.py.
 
 #include "attention_common.cuh"
+#include "attention_f32.cuh"
 #include "attention_sm90.cuh"
 
 namespace {
@@ -451,151 +474,206 @@ attention_bwd_dkdv_sm90(const BwdArgs<bf16> a, int S) {
     store_rows<D>(v_tile, dv, r0, wrow, t, lane, a.dv.at(b, h, key0 + wrow), a.dv.row_stride);
 }
 
-constexpr int F32_ROWS = 64;     // rows (= threads) per block, fp32 kernels
-constexpr int F32_KEYS = 32;     // keys per shared-memory chunk, dq kernel
-constexpr int F32_QUERIES = 16;  // queries per shared-memory chunk, dk/dv kernel
+constexpr int F32_STREAM = 32;  // rows of the other side's chunks, fp32 kernels
+constexpr int F32_NJ = F32_STREAM / 8;  // of them, per thread
 
-// D floats of one row from device memory plus bias, into `dst`
+// Dynamic shared memory of each fp32 kernel: two d-major tiles of the
+// block's own 64 rows (dq: Q + bq and dO; dk/dv: K and V), the 32 x 64 tile
+// of probabilities or dS, and 2 stages of the other side's two 32-row chunks
+// (dq: K and V; dk/dv: Q + bq and dO).
 template <int D>
-__device__ __forceinline__ void load_row_f32(float* dst, const float* src, const float* bias) {
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-        float4 v = __ldg(reinterpret_cast<const float4*>(src + d));
-        if (bias != nullptr) {
-            float4 bv = __ldg(reinterpret_cast<const float4*>(bias + d));
-            v.x += bv.x; v.y += bv.y; v.z += bv.z; v.w += bv.w;
-        }
-        dst[d] = v.x; dst[d + 1] = v.y; dst[d + 2] = v.z; dst[d + 3] = v.w;
-    }
+constexpr size_t f32_smem_bytes() {
+    return (size_t)(2 * D * F32_TILE + F32_STREAM * F32_TILE + 2 * 2 * F32_STREAM * D) * 4;
 }
 
-// `rows` x D floats (row stride `stride`) plus bias into shared memory with
-// row stride `ld`, all threads of the block together
+// Pointers into a fp32 kernel's dynamic shared memory.
 template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* src,
-                                              size_t stride, int rows, const float* bias) {
-    for (int i = threadIdx.x; i < rows * (D / 4); i += blockDim.x) {
-        const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-        float4 v = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * stride + c));
-        if (bias != nullptr) {
-            float4 bv = __ldg(reinterpret_cast<const float4*>(bias + c));
-            v.x += bv.x; v.y += bv.y; v.z += bv.z; v.w += bv.w;
-        }
-        float* p = dst + r * ld + c;
-        p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
-    }
-}
+struct F32Smem {
+    static constexpr int OWN = F32_TILE * D;      // floats of an own-row tile
+    static constexpr int CHUNK = F32_STREAM * D;  // floats of a streamed chunk
+    float* own0;  // d-major, D x 64
+    float* own1;
+    float* pt;    // 32 x 64, indexed [other side's row][own row]
+    float* ring;  // stage s: the first chunk at 2s chunks, the second after it
 
-// D floats from registers to one row of device memory
-template <int D>
-__device__ __forceinline__ void store_row_f32(float* dst, const float (&x)[D]) {
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-        *reinterpret_cast<float4*>(dst + d) = make_float4(x[d], x[d + 1], x[d + 2], x[d + 3]);
-    }
-}
+    __device__ __forceinline__ explicit F32Smem(float* base)
+        : own0(base), own1(base + OWN), pt(base + 2 * OWN),
+          ring(base + 2 * OWN + F32_STREAM * F32_TILE) {}
 
-// grid (S / 64, H, B), block 64 threads; thread r owns query row r of the
-// tile: q and dq in registers, its dO row in shared memory (row stride D + 1,
-// so the threads' rows fall into different banks). Writes delta for its row.
+    __device__ __forceinline__ float* stage(int n) const { return ring + (n & 1) * 2 * CHUNK; }
+};
+
+// grid (S / 64, H, B), block 128 threads, dynamic shared memory
+// f32_smem_bytes<D>(). Thread (ty, tx) (attention_f32.cuh) owns query rows
+// 4ty..4ty+3 of the tile (their lse and delta in registers, their dQ
+// columns 4(tx + 8h)..+3) and, of each 32-key chunk, keys tx + 8j. Writes
+// delta for the tile's rows.
 template <int D>
-__global__ void __launch_bounds__(F32_ROWS)
+__global__ void __launch_bounds__(F32_THREADS, D == 64 ? 3 : 4)
 attention_bwd_dq_f32(const BwdArgs<float> a, int S) {
-    __shared__ __align__(16) float Ks[F32_KEYS * D];
-    __shared__ __align__(16) float Vs[F32_KEYS * D];
-    __shared__ float dOs[F32_ROWS * (D + 1)];
+    extern __shared__ float4 smem_f4[];
+    const F32Smem<D> sm(reinterpret_cast<float*>(smem_f4));
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const size_t row0 = (size_t)tile * F32_ROWS, row = row0 + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int tx = lane & 7, ty = (threadIdx.x >> 5) * 4 + (lane >> 3);
+    const size_t row0 = (size_t)tile * F32_TILE;
     const float scale = a.scale, c = a.scale * LOG2E;
-
-    float q[D];
-    load_row_f32<D>(q, a.q.at(b, h, row), head_bias(a.bq, h, D));
-    load_rows_f32<D>(dOs, D + 1, a.dout.at(b, h, row0), a.dout.row_stride, F32_ROWS, nullptr);
-    __syncthreads();
-    const float* dO = dOs + threadIdx.x * (D + 1);
-    const float* op = a.o.at(b, h, row);
-    const float* bv = head_bias(a.bv, h, D);
-    float dl = 0.f;  // rowsum(dO * (O - bv))
-#pragma unroll
-    for (int d = 0; d < D; ++d) dl = fmaf(dO[d], op[d] - (bv != nullptr ? bv[d] : 0.f), dl);
-    const size_t note = ((size_t)b * gridDim.y + h) * S + row;
-    const float L = a.lse[note];
-    a.delta[note] = dl;
-
-    float dq[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) dq[d] = 0.f;
-    for (int k0 = 0; k0 < S; k0 += F32_KEYS) {
-        __syncthreads();  // the previous chunk is no longer read
-        load_rows_f32<D>(Ks, D, a.k.at(b, h, k0), a.k.row_stride, F32_KEYS, nullptr);
-        load_rows_f32<D>(Vs, D, a.v.at(b, h, k0), a.v.row_stride, F32_KEYS, nullptr);
-        __syncthreads();
-        for (int j = 0; j < F32_KEYS; ++j) {
-            float s = 0.f, dp = 0.f;
-#pragma unroll
-            for (int d = 0; d < D; ++d) {
-                s = fmaf(q[d], Ks[j * D + d], s);
-                dp = fmaf(dO[d], Vs[j * D + d], dp);
-            }
-            const float ds = exp2f(fmaf(s, c, -L)) * (dp - dl) * scale;
-#pragma unroll
-            for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, Ks[j * D + d], dq[d]);
+    const size_t ks = a.k.row_stride, vs = a.v.row_stride;
+    const float* kg = a.k.at(b, h, 0);
+    const float* vg = a.v.at(b, h, 0);
+    const int chunks = S / F32_STREAM;
+    const ChunkCopy<D, F32_STREAM> copy;
+    auto load_chunk = [&](int n) {  // K and V chunk n into stage n % 2, as one copy group
+        if (n < chunks) {
+            float* st = sm.stage(n);
+            copy.issue(st, kg + (size_t)n * F32_STREAM * ks, ks);
+            copy.issue(st + F32Smem<D>::CHUNK, vg + (size_t)n * F32_STREAM * vs, vs);
         }
+        cp_async_commit();
+    };
+
+    load_chunk(0);
+    stage_dmajor<D>(sm.own0, a.q.at(b, h, row0), a.q.row_stride, head_bias(a.bq, h, D));
+    stage_dmajor<D>(sm.own1, a.dout.at(b, h, row0), a.dout.row_stride, nullptr);
+
+    // delta = rowsum(dO * (O - bv)) of this thread's rows: each of the eight
+    // threads sharing them sums its columns, then the eight together
+    const float* bv = head_bias(a.bv, h, D);
+    const size_t note = ((size_t)b * gridDim.y + h) * S + row0 + 4 * ty;
+    float L[4], dl[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float* op = a.o.at(b, h, row0 + 4 * ty + i);
+        const float* dop = a.dout.at(b, h, row0 + 4 * ty + i);
+        float acc = 0.f;
+#pragma unroll
+        for (int hh = 0; hh < D / 32; ++hh) {
+            const int col = 4 * (tx + 8 * hh);
+            float4 o4 = ldg4(op + col);
+            if (bv != nullptr) {
+                const float4 b4 = ldg4(bv + col);
+                o4.x -= b4.x; o4.y -= b4.y; o4.z -= b4.z; o4.w -= b4.w;
+            }
+            const float4 d4 = ldg4(dop + col);
+            acc = fmaf(d4.x, o4.x, acc);
+            acc = fmaf(d4.y, o4.y, acc);
+            acc = fmaf(d4.z, o4.z, acc);
+            acc = fmaf(d4.w, o4.w, acc);
+        }
+        dl[i] = row_sum8(acc);
+        L[i] = a.lse[note + i];
     }
-    store_row_f32<D>(a.dq.at(b, h, row), dq);
+    if (tx == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a.delta[note + i] = dl[i];
+    }
+
+    float dq[4][D / 8];
+    zero(dq);
+    for (int j = 0; j < chunks; ++j) {
+        cp_async_wait<0>();  // this thread's copies of chunk j have landed
+        __syncthreads();     // everyone's (and Q, dO); chunk j - 1's stage is free
+        load_chunk(j + 1);   // in flight while chunk j is computed
+        const float* kc = sm.stage(j);
+        const float* vc = kc + F32Smem<D>::CHUNK;
+
+        float s[4][F32_NJ], dp[4][F32_NJ];
+        zero(s);
+        mm_nt<D, F32_NJ>(s, sm.own0, kc, ty, tx);   // S = (Q + bq) K^T
+        zero(dp);
+        mm_nt<D, F32_NJ>(dp, sm.own1, vc, ty, tx);  // dP = dO V^T
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int k = 0; k < F32_NJ; ++k) {      // dS = P * (dP - delta) * scale
+                s[i][k] = exp2_ftz(fmaf(s[i][k], c, -L[i])) * (dp[i][k] - dl[i]) * scale;
+            }
+        }
+        store_transposed(sm.pt, s, ty, tx);
+        __syncwarp();
+        mm_nn<D, F32_STREAM>(dq, sm.pt, kc, ty, tx);  // dQ += dS K
+    }
+    const float one[4] = {1.f, 1.f, 1.f, 1.f};
+    store_tile_rows<D>(a.dq, b, h, row0, dq, one, ty, tx);
 }
 
-// grid (S / 64, H, B), block 64 threads; thread r owns key row r of the
-// tile: its k and v rows in shared memory (row stride D + 1), dk and dv in
-// registers; queries stream through shared memory 16 at a time.
+// grid (S / 64, H, B), block 128 threads, dynamic shared memory
+// f32_smem_bytes<D>(). Thread (ty, tx) owns key rows 4ty..4ty+3 of the tile
+// (their dK and dV columns 4(tx + 8h)..+3) and, of each 32-query chunk,
+// queries tx + 8j (their lse and delta in registers).
 template <int D>
-__global__ void __launch_bounds__(F32_ROWS)
+__global__ void __launch_bounds__(F32_THREADS, D == 64 ? 3 : 4)
 attention_bwd_dkdv_f32(const BwdArgs<float> a, int S) {
-    __shared__ float Kt[F32_ROWS * (D + 1)];
-    __shared__ float Vt[F32_ROWS * (D + 1)];
-    __shared__ __align__(16) float Qc[F32_QUERIES * D];
-    __shared__ __align__(16) float dOc[F32_QUERIES * D];
-    __shared__ float Lc[F32_QUERIES], Dc[F32_QUERIES];
+    extern __shared__ float4 smem_f4[];
+    const F32Smem<D> sm(reinterpret_cast<float*>(smem_f4));
     const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const size_t row0 = (size_t)tile * F32_ROWS;
+    const int lane = threadIdx.x & 31;
+    const int tx = lane & 7, ty = (threadIdx.x >> 5) * 4 + (lane >> 3);
+    const size_t row0 = (size_t)tile * F32_TILE;
     const float scale = a.scale, c = a.scale * LOG2E;
-    load_rows_f32<D>(Kt, D + 1, a.k.at(b, h, row0), a.k.row_stride, F32_ROWS, nullptr);
-    load_rows_f32<D>(Vt, D + 1, a.v.at(b, h, row0), a.v.row_stride, F32_ROWS, nullptr);
-    const float* k = Kt + threadIdx.x * (D + 1);
-    const float* v = Vt + threadIdx.x * (D + 1);
+    const size_t qs = a.q.row_stride, ds = a.dout.row_stride;
+    const float* qg = a.q.at(b, h, 0);
+    const float* dg = a.dout.at(b, h, 0);
     const float* bq = head_bias(a.bq, h, D);
-    const size_t note0 = ((size_t)b * gridDim.y + h) * S;
+    const int chunks = S / F32_STREAM;
+    const ChunkCopy<D, F32_STREAM> copy;
+    auto load_chunk = [&](int n) {  // Q and dO chunk n into stage n % 2, as one copy group
+        if (n < chunks) {
+            float* st = sm.stage(n);
+            copy.issue(st, qg + (size_t)n * F32_STREAM * qs, qs);
+            copy.issue(st + F32Smem<D>::CHUNK, dg + (size_t)n * F32_STREAM * ds, ds);
+        }
+        cp_async_commit();
+    };
 
-    float dk[D], dv[D];
+    load_chunk(0);
+    stage_dmajor<D>(sm.own0, a.k.at(b, h, row0), a.k.row_stride, nullptr);
+    stage_dmajor<D>(sm.own1, a.v.at(b, h, row0), a.v.row_stride, nullptr);
+    const size_t note0 = ((size_t)b * gridDim.y + h) * S + tx;
+
+    float dk[4][D / 8], dv[4][D / 8];
+    zero(dk);
+    zero(dv);
+    for (int j = 0; j < chunks; ++j) {
+        cp_async_wait<0>();  // this thread's copies of chunk j have landed
+        float* const qc = sm.stage(j);
+        const float* doc = qc + F32Smem<D>::CHUNK;
+        if (bq != nullptr) copy.add_bias(qc, bq);
+        __syncthreads();     // everyone's (and K, V); chunk j - 1's stage is free
+        load_chunk(j + 1);   // in flight while chunk j is computed
+
+        const float* lse = a.lse + note0 + (size_t)j * F32_STREAM;
+        const float* delta = a.delta + note0 + (size_t)j * F32_STREAM;
+        float L[F32_NJ], dl[F32_NJ];
 #pragma unroll
-    for (int d = 0; d < D; ++d) { dk[d] = 0.f; dv[d] = 0.f; }
-    for (int q0 = 0; q0 < S; q0 += F32_QUERIES) {
-        __syncthreads();  // the previous chunk is no longer read (and Kt, Vt are written)
-        load_rows_f32<D>(Qc, D, a.q.at(b, h, q0), a.q.row_stride, F32_QUERIES, bq);
-        load_rows_f32<D>(dOc, D, a.dout.at(b, h, q0), a.dout.row_stride, F32_QUERIES, nullptr);
-        if (threadIdx.x < F32_QUERIES) {
-            Lc[threadIdx.x] = a.lse[note0 + q0 + threadIdx.x];
-            Dc[threadIdx.x] = a.delta[note0 + q0 + threadIdx.x];
+        for (int k = 0; k < F32_NJ; ++k) {
+            L[k] = __ldg(lse + 8 * k);
+            dl[k] = __ldg(delta + 8 * k);
         }
-        __syncthreads();
-        for (int i = 0; i < F32_QUERIES; ++i) {
-            float s = 0.f, dp = 0.f;
+        float p[4][F32_NJ], dp[4][F32_NJ];
+        zero(p);
+        mm_nt<D, F32_NJ>(p, sm.own0, qc, ty, tx);    // S^T = K (Q + bq)^T
+        zero(dp);
+        mm_nt<D, F32_NJ>(dp, sm.own1, doc, ty, tx);  // dP^T = V dO^T
 #pragma unroll
-            for (int d = 0; d < D; ++d) {
-                s = fmaf(k[d], Qc[i * D + d], s);
-                dp = fmaf(v[d], dOc[i * D + d], dp);
-            }
-            const float p = exp2f(fmaf(s, c, -Lc[i]));
-            const float ds = p * (dp - Dc[i]) * scale;
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-            for (int d = 0; d < D; ++d) {
-                dk[d] = fmaf(ds, Qc[i * D + d], dk[d]);
-                dv[d] = fmaf(p, dOc[i * D + d], dv[d]);
+            for (int k = 0; k < F32_NJ; ++k) {
+                p[i][k] = exp2_ftz(fmaf(p[i][k], c, -L[k]));
+                dp[i][k] = p[i][k] * (dp[i][k] - dl[k]) * scale;  // dS^T
             }
         }
+        store_transposed(sm.pt, p, ty, tx);
+        __syncwarp();
+        mm_nn<D, F32_STREAM>(dv, sm.pt, doc, ty, tx);  // dV += P^T dO
+        __syncwarp();  // the warp's reads of P^T are done
+        store_transposed(sm.pt, dp, ty, tx);
+        __syncwarp();
+        mm_nn<D, F32_STREAM>(dk, sm.pt, qc, ty, tx);   // dK += dS^T (Q + bq)
     }
-    store_row_f32<D>(a.dk.at(b, h, row0 + threadIdx.x), dk);
-    store_row_f32<D>(a.dv.at(b, h, row0 + threadIdx.x), dv);
+    const float one[4] = {1.f, 1.f, 1.f, 1.f};
+    store_tile_rows<D>(a.dk, b, h, row0, dk, one, ty, tx);
+    store_tile_rows<D>(a.dv, b, h, row0, dv, one, ty, tx);
 }
 
 // Allows both bf16 kernels their dynamic shared memory, once per device.
@@ -629,13 +707,26 @@ int launch_bf16(const BwdArgs<bf16>& a, int B, int S, int H, cudaStream_t stream
     return static_cast<int>(cudaGetLastError());
 }
 
+// Allows both fp32 kernels their dynamic shared memory, once per device.
+template <int D>
+cudaError_t prepare_f32() {
+    static bool dq_ready[MAX_DEVICES] = {}, kv_ready[MAX_DEVICES] = {};
+    cudaError_t err = allow_smem(attention_bwd_dq_f32<D>, f32_smem_bytes<D>(), dq_ready);
+    if (err == cudaSuccess) {
+        err = allow_smem(attention_bwd_dkdv_f32<D>, f32_smem_bytes<D>(), kv_ready);
+    }
+    return err;
+}
+
 template <int D>
 int launch_f32(const BwdArgs<float>& a, int B, int S, int H, cudaStream_t stream) {
-    dim3 grid(S / F32_ROWS, H, B);
-    attention_bwd_dq_f32<D><<<grid, F32_ROWS, 0, stream>>>(a, S);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = prepare_f32<D>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    attention_bwd_dkdv_f32<D><<<grid, F32_ROWS, 0, stream>>>(a, S);
+    const dim3 grid(S / F32_TILE, H, B);
+    attention_bwd_dq_f32<D><<<grid, F32_THREADS, f32_smem_bytes<D>(), stream>>>(a, S);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_bwd_dkdv_f32<D><<<grid, F32_THREADS, f32_smem_bytes<D>(), stream>>>(a, S);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -652,38 +743,20 @@ int launch(const BwdArgs<T>& a, int B, int S, int H, int D, cudaStream_t st) {
     return -1;
 }
 
-// out[0..4] of `kernel`: registers per thread, local (spill) bytes per
-// thread, shared memory per block (static + dynamic), resident blocks per
-// SM, threads per block.
-template <typename K>
-int kernel_attributes(K kernel, int threads, size_t dynamic_smem, int* out) {
-    cudaFuncAttributes fa;
-    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-    int blocks = 0;
-    if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
-                                                            dynamic_smem);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    out[0] = fa.numRegs;
-    out[1] = (int)fa.localSizeBytes;
-    out[2] = (int)(fa.sharedSizeBytes + dynamic_smem);
-    out[3] = blocks;
-    out[4] = threads;
-    return 0;
-}
-
 template <int D>
 int attributes(int is_bf16, int kernel, int* out) {
     if (!is_bf16) {
-        return kernel == 0 ? kernel_attributes(attention_bwd_dq_f32<D>, F32_ROWS, 0, out)
-                           : kernel_attributes(attention_bwd_dkdv_f32<D>, F32_ROWS, 0, out);
+        const cudaError_t err = prepare_f32<D>();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        return kernel == 0
+            ? launch_attributes(attention_bwd_dq_f32<D>, F32_THREADS, f32_smem_bytes<D>(), out)
+            : launch_attributes(attention_bwd_dkdv_f32<D>, F32_THREADS, f32_smem_bytes<D>(), out);
     }
     const cudaError_t err = prepare_sm90<D>();
     if (err != cudaSuccess) return static_cast<int>(err);
     return kernel == 0
-        ? kernel_attributes(attention_bwd_dq_sm90<D>, NT, dq_smem_bytes<D>(), out)
-        : kernel_attributes(attention_bwd_dkdv_sm90<D>, NT, dkdv_smem_bytes<D>(), out);
+        ? launch_attributes(attention_bwd_dq_sm90<D>, NT, dq_smem_bytes<D>(), out)
+        : launch_attributes(attention_bwd_dkdv_sm90<D>, NT, dkdv_smem_bytes<D>(), out);
 }
 
 template <typename T>

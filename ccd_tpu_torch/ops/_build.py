@@ -9,7 +9,7 @@ every module of the package on machines with no ``nvcc``.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -32,32 +32,36 @@ def find_nvcc() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
-def _paths(name: str):
-    """(source, library) paths of ``csrc/<name>.cu``."""
+def _paths(name: str, csrc_dir: Optional[str] = None, build_dir: Optional[str] = None):
+    """(source, library) paths of ``<csrc_dir>/<name>.cu`` (by default the
+    package's ``csrc/``, built into its ``_build/``)."""
     import glob
     import hashlib
 
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    csrc_dir, build_dir = csrc_dir or CSRC_DIR, build_dir or BUILD_DIR
+    src = os.path.join(csrc_dir, f"{name}.cu")
     digest = hashlib.sha1()
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+    for path in [src] + sorted(glob.glob(os.path.join(csrc_dir, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(f.read())
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+    return src, os.path.join(build_dir, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
-def build_libraries(names: Sequence[str]) -> List[str]:
-    """Compile every ``csrc/<name>.cu`` whose library is not there yet, all
-    ``nvcc`` runs started together; return the libraries' paths. Raises with
-    the compiler's output when a build fails."""
+def build_libraries(names: Sequence[str], csrc_dir: Optional[str] = None,
+                    build_dir: Optional[str] = None) -> List[str]:
+    """Compile every ``<csrc_dir>/<name>.cu`` (the package's own sources by
+    default) whose library is not in ``build_dir`` yet, all ``nvcc`` runs
+    started together; return the libraries' paths. Raises with the
+    compiler's output when a build fails."""
     import subprocess
 
     libs, running = [], []
     for name in names:
-        src, lib = _paths(name)
+        src, lib = _paths(name, csrc_dir, build_dir)
         libs.append(lib)
         if os.path.isfile(lib):
             continue
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
         running.append((cmd, tmp, lib, subprocess.Popen(

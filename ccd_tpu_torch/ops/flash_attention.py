@@ -63,6 +63,13 @@ evaluation shape (B, S, C, H) = (288, 256, 384, 6) the forward must read
 read qkv and dO and write dqkv, 176.2 MB, 0.053 ms, against 32.2 GFLOP,
 0.033 ms (the saved output and lse add 26.0 MB of reads). So the kernels' job
 is to touch qkv, dO, dqkv and the output once and nothing else.
+
+In fp32 (exact, no TF32) the bound is the fp32 pipe's 67 TFLOP/s: 0.433 ms
+for the forward at the evaluation shape, 0.481 ms for the backward's five
+products at the pretraining shape. The fp32 kernels (``attention_f32.cuh``)
+are register-tiled on that pipe, add bq and bv as they stage q and v (one
+fp32 add, as here) and drop bk; they differ from the plain version only in
+the order of their sums and in the exponential's rounding.
 """
 
 from __future__ import annotations
@@ -505,15 +512,21 @@ def _launch_flash(q, k, v, scale: float, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
-def forward_kernel_attributes(head_dim: int, rows: int) -> dict:
-    """Launch resources of the bf16 forward kernel on the current card, for
-    ``head_dim`` (32 or 64) and ``rows``-row tiles (128 where S is a multiple
-    of 128, else 64): registers and local (spill) bytes per thread, shared
-    memory per block, resident blocks per SM, threads per block."""
-    if head_dim not in _HEAD_DIMS or rows not in (64, 128):
-        raise ValueError(f"no forward kernel for head dim {head_dim} and {rows}-row tiles")
-    return kernel_attributes("packed_attention", "attention_forward_attributes", head_dim,
-                       int(rows == 128))
+def forward_kernel_attributes(head_dim: int, rows: int,
+                              dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Launch resources of the forward kernel on the current card, for
+    ``head_dim`` (32 or 64), ``rows``-row tiles and ``dtype``: bf16 runs
+    128-row tiles where S is a multiple of 128, else 64; fp32 runs 64-row
+    tiles. Registers and local (spill) bytes per thread, shared memory per
+    block, resident blocks per SM, threads per block."""
+    tiles = (64, 128) if dtype == torch.bfloat16 else (64,)
+    if head_dim not in _HEAD_DIMS or dtype not in _SUPPORTED_DTYPES or rows not in tiles:
+        raise ValueError(f"no forward kernel for head dim {head_dim}, {rows}-row tiles "
+                         f"and {dtype}")
+    if dtype == torch.bfloat16:
+        return kernel_attributes("packed_attention", "attention_forward_attributes", head_dim,
+                                 int(rows == 128))
+    return kernel_attributes("packed_attention", "attention_forward_f32_attributes", head_dim)
 
 
 def backward_kernel_attributes(head_dim: int, dtype: torch.dtype, kernel: str) -> dict:

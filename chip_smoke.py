@@ -82,7 +82,18 @@ shipped configurations, with random weights from a seed:
     byte for byte; the ``train`` CLI reads through it;
   * the convergence demo (``cli.convergence_demo``) at ``vit_tiny``,
     ``out_dim`` 8192, ``--easy --no_aug``, a few hundred iterations a phase:
-    falling pretrain losses and the teacher backbone handed over by name.
+    falling pretrain losses and the teacher backbone handed over by name;
+  * the fused pretraining step of ``ccd_pretrain_vit_tiny.yaml`` in fp32
+    (``fp32_step``: the fp32 attention kernels at (128, 256, 192, 3)), held
+    against the plain versions, with the card's busy time and the attention
+    kernels' device time under the profiler.
+
+    python3 chip_smoke.py --only attention_fp32 --only fp32_step [--kernels-from DIR]
+
+runs only the fp32 attention cases of the kernel checks and the fp32 step
+after the build; with ``--kernels-from`` each also with the attention
+kernels built from another checkout's sources (the parent unpacked by ``git
+archive``, say), in turns with this tree's.
 
 It checks that each path went through the kernels (launch counts set to 0
 just before a path and read just after) and that its output agrees with a
@@ -192,9 +203,10 @@ LAUNCHES_PER_STEP_REMAT = dict(LAUNCHES_PER_STEP, **{"K1-fwd": 36})
 OPT_TIMED_STEPS = 3                    # sgd and lars: timed steps after the compared one
 REMAT_TIMED_STEPS = 3                  # timed steps with and without remat after the first
 # the convergence demo on the card, cut to a few hundred iterations a phase
-# (the demo logs its pretrain loss every 100 iterations)
-CONV_SHORT = {"pretrain_samples": 4096, "pretrain_iters": 300, "labeled": 1024,
-              "eval_samples": 256, "finetune_iters": 150, "eval_iters": 75,
+# so that the script stays under 750 s (the demo logs its pretrain loss
+# every 100 iterations: two readings, whose fall is the gate)
+CONV_SHORT = {"pretrain_samples": 2048, "pretrain_iters": 200, "labeled": 1024,
+              "eval_samples": 256, "finetune_iters": 100, "eval_iters": 50,
               "lr_finetune": 1e-3}
 CLI_ITERS, CLI_RESUMED_ITERS, CLI_WORDS = 16, 48, 1024  # 1024 words: 16 iterations an epoch
 STEP_PHASES = ("augment", "student_encode", "segment", "label_clusters", "warp", "teacher_encode",
@@ -248,6 +260,32 @@ MASK_MAX_DIFF_SHARE, MASK_TIE_RTOL = 1e-4, 1e-3
 # blocks) with the 6-layer NRTR: recognizer, pretraining student and teacher
 REFERENCE_KEY_COUNTS = {"recognizer": 274, "student": 252, "teacher": 164}
 LONG = 4096                            # a long sequence: K/V (or Q/dO) stream through shared memory
+# attention shapes (B, S, C, H) of the kernels phase: the evaluation and
+# finetune batch, the ViT-Small pretraining batch (2 x 64 images), a small
+# one, ViT-Base and ViT-Tiny at their pretraining batches (2 x 48 and 2 x 64
+# images), the learnability probe's batch at full width and at vit_micro,
+# 64-row tiles where S % 128 != 0, and a long sequence
+EVAL_SHAPE, TRAIN_SHAPE, SMALL_SHAPE = (BATCH, 256, 384, 6), (2 * PRETRAIN_BATCH, 256, 384, 6), \
+    (4, 256, 64, 2)
+BASE_SHAPE, TINY_SHAPE = (2 * VIT_BASE_BATCH, 256, 512, 8), (2 * PRETRAIN_BATCH, 256, 192, 3)
+PROBE_SHAPE, MICRO_SHAPE = (PROBE_WORDS, 256, 384, 6), (PROBE_WORDS, 256, 64, 2)
+ODD_TILES_SHAPE, LONG_SHAPE = (2, 192, 128, 2), (1, LONG, 64, 1)
+FOLDED_SHAPE = (6 * 2 * PRETRAIN_BATCH, 256, 64)          # (768, 256, 64): calibrate's
+# the fp32 attention kernels' cases (all with bias but the backward's second
+# train and small cases): vit_micro (the probe) and vit_tiny (the smoke
+# configurations, the convergence demo) run in fp32
+FP32_FORWARD_SHAPES = (EVAL_SHAPE, SMALL_SHAPE, MICRO_SHAPE, TINY_SHAPE, ODD_TILES_SHAPE,
+                       LONG_SHAPE)
+FP32_BACKWARD_CASES = ((TRAIN_SHAPE, True), (TRAIN_SHAPE, False), (SMALL_SHAPE, True),
+                       (SMALL_SHAPE, False), (MICRO_SHAPE, True), (TINY_SHAPE, True),
+                       (ODD_TILES_SHAPE, True), (LONG_SHAPE, True))
+FP32_FLASH_SHAPES = (FOLDED_SHAPE, (8, 64, 32))
+ATTENTION_LIBRARIES = ("packed_attention", "packed_attention_bwd")
+# the vit_tiny pretraining step in fp32 (ccd_pretrain_vit_tiny.yaml with
+# compute_dtype float32, batch 64: attention at TINY_SHAPE): a step held
+# against the plain versions, FP32_STEP_TIMED timed ones, one profiled
+TINY_CONFIG = os.path.join(PKG_DIR, "configs", "ccd_pretrain_vit_tiny.yaml")
+FP32_STEP_TIMED = 3
 
 # |kernel - plain| on O(1) outputs. bf16: both round p and the output to bf16
 # (ulp 2^-8 relative, 2^-7 absolute just below 2), at different points of the
@@ -355,7 +393,14 @@ BILATERAL_FP32_PER_TAP = 11
 BILATERAL_FORMER_OPS_PER_TAP = 25
 
 
+STARTED = time.time()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds since
+    the script started)."""
+    if "phase" in obj:
+        obj = dict(obj, ended_at_s=time.time() - STARTED)
     print(json.dumps(obj), flush=True)
 
 
@@ -433,6 +478,19 @@ def check_attention(shape, dtype, with_bias, gen):
     if not err <= TOL[dtype]:
         raise SystemExit(f"packed attention {shape} {dtype} bias={with_bias}: "
                          f"max |kernel - plain| = {err} > {TOL[dtype]}")
+    extra = {}
+    if dtype == torch.float32:
+        # every fp32 case: two forward calls and two backward calls at its
+        # shape bitwise equal (no atomics in either direction)
+        out2, lse = mha_packed_bias_fwd(qkv, bias, scale, h)
+        dout = torch.randn(b, s, c, device="cuda", generator=gen)
+        grads = [mha_packed_bias_bwd(qkv, bias, dout, scale, h, out=out2, lse=lse)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        if not bool(torch.equal(out, out2)) or not bool(torch.equal(*grads)):
+            raise SystemExit(f"packed attention {shape} {dtype}: two calls on the same inputs "
+                             f"differ")
+        extra = {"bitwise_reproducible": True, "bitwise_reproducible_backward": True}
     biased = qkv if bias is None else qkv + bias
     q, k, v = biased.view(b, s, 3, h, c // h).permute(2, 0, 3, 1, 4)
     heavy = b * s * c > 1 << 24
@@ -446,7 +504,7 @@ def check_attention(shape, dtype, with_bias, gen):
         "max_abs_err": err, "tol": TOL[dtype], "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: mha_packed_bias_plain(qkv, bias, scale, h),
                             reps=3 if heavy else 10, warmup=1),
-        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, **extra,
     }, kernel, library)
 
 
@@ -765,6 +823,86 @@ def check_flash(shape, dtype, gen):
     bwd["bound_ms"], bwd["bound_by"] = roofline(bwd_bytes, bwd_flops, dtype)
     time_ratios(bwd, kernel, library)
     return fwd, bwd
+
+
+def attention_fp32_checks(gen):
+    """Every fp32 case of the kernels phase: (forward entries, backward
+    entries, K1b (forward, backward) pairs)."""
+    f32 = torch.float32
+    return ([check_attention(shape, f32, True, gen) for shape in FP32_FORWARD_SHAPES],
+            [check_attention_bwd(shape, f32, bias, gen) for shape, bias in FP32_BACKWARD_CASES],
+            [check_flash(shape, f32, gen) for shape in FP32_FLASH_SHAPES])
+
+
+@contextlib.contextmanager
+def attention_kernels_from(root: str):
+    """Inside, the attention wrappers launch the kernels built from
+    ``<root>/ccd_tpu_torch/csrc`` (a checkout of another commit, whose C
+    entries take the same arguments) into ``<root>/ccd_tpu_torch/_build``;
+    this tree's come back on leaving."""
+    import ctypes
+    pkg = os.path.join(os.path.abspath(root), "ccd_tpu_torch")
+    libs = _build.build_libraries(ATTENTION_LIBRARIES, csrc_dir=os.path.join(pkg, "csrc"),
+                                  build_dir=os.path.join(pkg, "_build"))
+    saved = {name: _build.load_library(name) for name in ATTENTION_LIBRARIES}
+    entries = dict(flash_attention_mod._entries)
+    flash_attention_mod._entries.clear()
+    _build._loaded.update({name: ctypes.CDLL(lib) for name, lib in zip(ATTENTION_LIBRARIES, libs)})
+    try:
+        yield
+    finally:
+        _build._loaded.update(saved)
+        flash_attention_mod._entries.clear()
+        flash_attention_mod._entries.update(entries)
+
+
+def resource_usage(library_path: str, kernel_part: str) -> dict | None:
+    """Registers, stack, shared and local (spill) bytes per thread of the
+    kernel whose mangled name holds ``kernel_part`` in a built library, as
+    ``cuobjdump -res-usage`` reads them from its code; None where the toolkit
+    has no cuobjdump or no such kernel is there."""
+    import re
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    text = subprocess.run([tool, "-res-usage", library_path], capture_output=True, text=True,
+                          check=True).stdout
+    found = {}
+    for name, line in re.findall(r"Function ([^\s:]+):?\s*\n\s*(REG:[^\n]*)", text):
+        if kernel_part in name:
+            found[name] = {k.lower(): int(v)
+                           for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line)}
+    return found or None
+
+
+FP32_KERNEL_NAMES = ("attention_fwd_f32", "attention_bwd_dq_f32", "attention_bwd_dkdv_f32")
+
+
+def fp32_code_resources(libs) -> dict:
+    """``resource_usage`` of the three fp32 attention kernels (each head dim)
+    in the built forward and backward libraries."""
+    fwd_lib, bwd_lib = libs
+    return {name: resource_usage(fwd_lib if "fwd" in name else bwd_lib, name)
+            for name in FP32_KERNEL_NAMES}
+
+
+def attention_fp32_phase(card: str, kernels: str) -> None:
+    """The fp32 attention cases of the kernels phase alone, with the kernels
+    named by ``kernels`` (this tree's, or another checkout's): one line with
+    every case's entry and the kernels' resources."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fwd, bwd, flash = attention_fp32_checks(gen)
+    libs = [_build.load_library(name)._name for name in ATTENTION_LIBRARIES]
+    try:
+        launch_resources = {"forward": fp32_forward_resources(),
+                            "backward": [r for r in backward_resources()
+                                         if r["dtype"] == "float32"]}
+    except (AttributeError, RuntimeError) as exc:  # an older library without the entry
+        launch_resources = {"not available": str(exc)[:200]}
+    emit({"phase": "attention_fp32", "gpu": card, "kernels": kernels, "forward": fwd,
+          "backward": bwd, "flash_forward": [c[0] for c in flash],
+          "flash_backward": [c[1] for c in flash], "resources": launch_resources,
+          "code_resources": fp32_code_resources(libs)})
 
 
 def bilateral_taps(rad2: torch.Tensor, max_radius: int) -> int:
@@ -1777,6 +1915,69 @@ def severity_2_pretrain_step(card: str) -> dict:
           "config": "ccd_pretrain_vit_small.yaml, augmentation_severity 2",
           "batch": PRETRAIN_BATCH, "steps": 2, "kernel_launches": launches,
           "losses": [m for m, _, _ in runs], "step_ms": [ms for _, _, ms in runs]})
+    return launches
+
+
+def fp32_step_phase(card: str, kernels: str = "this tree") -> dict:
+    """The fused pretraining step of ``ccd_pretrain_vit_tiny.yaml`` with
+    ``compute_dtype: float32`` (ViT-Tiny, C = 192, 3 heads, ``out_dim``
+    65536, batch 64, severity 5; the fp32 attention kernels at TINY_SHAPE):
+    a first step held against the same step through the plain versions,
+    FP32_STEP_TIMED timed steps and one under the profiler (the card's busy
+    time, the attention kernels' device time by kernel), peak memory, and
+    the launches of all five. ``kernels`` names the attention kernels'
+    origin in the line. Returns the kernels' launches."""
+    config = Config(TINY_CONFIG)
+    config.compute_dtype = "float32"
+    student, teacher = build_pretrain_models(config, device="cuda",
+                                             generator=torch.Generator().manual_seed(SEED))
+    blocks = student.backbone.blocks
+    if student.dtype != torch.float32 or student.backbone.embed_dim != 192 \
+            or len(blocks) != 12 or blocks[0].attn.num_heads != 3 \
+            or student.out_dim != 65536 or int(config.batch_size_per_gpu) != PRETRAIN_BATCH:
+        raise SystemExit("fp32 step: not the full-width fp32 ViT-Tiny configuration")
+    what = f"fp32 step ({kernels})"
+    state = init_pretrain_state(student, teacher, seed=SEED)
+    raw, masks = pretrain_inputs(PRETRAIN_BATCH, seed=654)
+    step = make_fused_pretrain_step(gt_mask_epochs=30, **pretrain_schedule(config, PRETRAIN_BATCH))
+    twin = pretrain_twin(state)
+    reset_kernel_counts()
+    first, made, first_ms = run_pretrain_step(step, state, raw, masks, what)
+    if made != LAUNCHES_PER_STEP:
+        raise SystemExit(f"{what}: step launched {made}, expected {LAUNCHES_PER_STEP}")
+    compared = against_plain_step(what, step, state, twin, raw, masks, first)
+    del twin
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [run_pretrain_step(step, state, raw, masks, what) for _ in range(FP32_STEP_TIMED)]
+    if any(m != LAUNCHES_PER_STEP for _, m, _ in runs):
+        raise SystemExit(f"{what}: launched {[m for _, m, _ in runs]}, expected "
+                         f"{LAUNCHES_PER_STEP} a step")
+    peak = torch.cuda.max_memory_allocated()
+    wall, rows = profiled_kernels(lambda: step(state, raw, masks))
+    launches = kernel_counts()
+    n_steps = FP32_STEP_TIMED + 2
+    if launches != {k: v * n_steps for k, v in LAUNCHES_PER_STEP.items()}:
+        raise SystemExit(f"{what}: {launches} launches over {n_steps} steps")
+    busy = sum(r[0] for r in rows) if rows else None
+    attention = {name: {"device_ms": ms, "calls": n} for ms, n, name in rows
+                 if "attention_" in name}
+    if busy is None or not attention:
+        raise SystemExit(f"{what}: the profiler saw no device time (or no attention kernel)")
+    step_ms = [ms for _, _, ms in runs]
+    emit({"phase": "fp32_step", "gpu": card, "kernels": kernels,
+          "config": "ccd_pretrain_vit_tiny.yaml, compute_dtype float32",
+          "batch": PRETRAIN_BATCH, "attention_shape": list(TINY_SHAPE), "steps": n_steps,
+          "launches_per_step": LAUNCHES_PER_STEP, "kernel_launches": launches,
+          "first_step_ms": first_ms, "step_ms": step_ms,
+          "step_ms_median": statistics.median(step_ms), "peak_device_memory_bytes": peak,
+          "profiled_step_wall_ms": wall, "profiled_device_busy_ms": busy,
+          "profiled_device_idle_share": 1.0 - busy / wall,
+          "attention_device_ms": sum(v["device_ms"] for v in attention.values()),
+          "attention_kernels": attention,
+          "profiled_top_kernels": [{"kernel": k[:60], "ms": ms, "calls": n}
+                                   for ms, n, k in rows[:8]],
+          "first_step": first, **compared, "losses": [m for m, _, _ in runs]})
     return launches
 
 
@@ -3149,10 +3350,17 @@ def calibrate_phase(card: str) -> dict:
 
 def forward_resources() -> list:
     """Registers and local (spill) bytes per thread, shared memory per block
-    and resident blocks per SM of the bf16 forward kernel, for each head dim
-    and tile height it is built for."""
-    return [dict(head_dim=d, rows=rows, **forward_kernel_attributes(d, rows))
-            for d in (64, 32) for rows in (128, 64)]
+    and resident blocks per SM of the forward kernels, for each head dim and
+    tile height they are built for: bf16 (128- and 64-row tiles) and fp32
+    (64-row tiles)."""
+    return [dict(head_dim=d, rows=rows, dtype="bfloat16", **forward_kernel_attributes(d, rows))
+            for d in (64, 32) for rows in (128, 64)] + fp32_forward_resources()
+
+
+def fp32_forward_resources() -> list:
+    """The same for the fp32 forward kernel (64-row tiles)."""
+    return [dict(head_dim=d, rows=64, dtype="float32",
+                 **forward_kernel_attributes(d, 64, torch.float32)) for d in (64, 32)]
 
 
 def backward_resources() -> list:
@@ -3206,7 +3414,59 @@ def kernel_entry(name, source, replaces, launches, head, variants, **extra):
                  "library_ms": head["library_ms"], "variants": variants}, **extra)
 
 
-def main() -> None:
+def parse_args(argv):
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Build the port's kernels, hold each against its plain version on the "
+                    "card and drive every main path (no arguments), or run only the phases "
+                    "named by --only.")
+    parser.add_argument("--only", action="append", choices=ONLY_PHASES,
+                        help="run only this phase after the build (repeatable): the fp32 "
+                             "attention cases of the kernels phase, or the fp32 ViT-Tiny step")
+    parser.add_argument("--kernels-from", metavar="DIR",
+                        help="with --only: run each phase also with the attention kernels "
+                             "built from DIR/ccd_tpu_torch/csrc (a checkout of another commit, "
+                             "e.g. the parent unpacked by git archive), in turns with this "
+                             "tree's")
+    args = parser.parse_args(argv)
+    if args.kernels_from and not args.only:
+        parser.error("--kernels-from needs --only")
+    return args
+
+
+ONLY_PHASES = ("attention_fp32", "fp32_step")
+
+
+def only_phases(card: str, phases, other) -> None:
+    """The phases named, each with this tree's attention kernels and, where
+    ``other`` names a checkout, in turns with its kernels (other, this, this,
+    other for the step; other, this for the kernels' cases)."""
+    def run(phase, kernels):
+        reset_kernel_counts()
+        if phase == "attention_fp32":
+            attention_fp32_phase(card, kernels)
+        else:
+            fp32_step_phase(card, kernels)
+
+    def with_other(phase):
+        with attention_kernels_from(other):
+            run(phase, other)
+
+    for phase in phases:
+        if other is None:
+            run(phase, "this tree")
+        elif phase == "attention_fp32":
+            with_other(phase)
+            run(phase, "this tree")
+        else:
+            with_other(phase)
+            run(phase, "this tree")
+            run(phase, "this tree")
+            with_other(phase)
+
+
+def main(argv=()) -> None:
+    args = parse_args(list(argv))
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script needs a GPU")
     card = smi()
@@ -3234,48 +3494,40 @@ def main() -> None:
     emit({"phase": "build",
           "libraries": [os.path.relpath(lib, os.path.dirname(PKG_DIR)) for lib in libs],
           "seconds": time.time() - t0})
+    if args.only:
+        only_phases(card, args.only, args.kernels_from)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
 
     # ---- every kernel against its plain version, at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
-    eval_shape, train_shape, small = (BATCH, 256, 384, 6), (2 * PRETRAIN_BATCH, 256, 384, 6), \
-        (4, 256, 64, 2)
-    # ViT-Base (C = 512, 8 heads) and ViT-Tiny (C = 192, 3 heads) at their
-    # pretraining batches: 2 x 48 and 2 x 64 images
-    base_shape, tiny_shape = (2 * VIT_BASE_BATCH, 256, 512, 8), (2 * PRETRAIN_BATCH, 256, 192, 3)
-    # the learnability probe's batch: ViT-Small in bf16 (its steps and decode,
-    # and parity_eval's IIIT5k_probe batch) and vit_micro in fp32
-    probe_shape, micro_shape = (PROBE_WORDS, 256, 384, 6), (PROBE_WORDS, 256, 64, 2)
-    fwd = [check_attention(eval_shape, bf16, True, gen),
-           check_attention(train_shape, bf16, True, gen),
-           check_attention(base_shape, bf16, True, gen),
-           check_attention(tiny_shape, bf16, True, gen),
-           check_attention(eval_shape, f32, True, gen),
-           check_attention(small, bf16, True, gen),
-           check_attention(small, f32, True, gen),
-           check_attention(eval_shape, bf16, False, gen),
-           check_attention(probe_shape, bf16, True, gen),
-           check_attention(micro_shape, f32, True, gen),
+    fp32_fwd, fp32_bwd, fp32_flash = attention_fp32_checks(gen)
+    fwd = [check_attention(EVAL_SHAPE, bf16, True, gen),
+           check_attention(TRAIN_SHAPE, bf16, True, gen),
+           check_attention(BASE_SHAPE, bf16, True, gen),
+           check_attention(TINY_SHAPE, bf16, True, gen),
+           check_attention(SMALL_SHAPE, bf16, True, gen),
+           check_attention(EVAL_SHAPE, bf16, False, gen),
+           check_attention(PROBE_SHAPE, bf16, True, gen),
            # K and V stream through shared memory: the forward takes any S
-           check_attention((1, LONG, 64, 1), bf16, True, gen)]
-    bwd = [check_attention_bwd(shape, dtype, with_bias, gen)
-           for shape in (train_shape, small) for dtype in (bf16, f32)
-           for with_bias in (True, False)]
-    bwd.append(check_attention_bwd(eval_shape, bf16, True, gen))  # the finetune step's shape
-    bwd += [check_attention_bwd(base_shape, bf16, True, gen),
-            check_attention_bwd(tiny_shape, bf16, True, gen),
-            check_attention_bwd(probe_shape, bf16, True, gen),
-            check_attention_bwd(micro_shape, f32, True, gen)]
+           check_attention(LONG_SHAPE, bf16, True, gen)] + fp32_fwd
+    bwd = [check_attention_bwd(shape, bf16, with_bias, gen)
+           for shape in (TRAIN_SHAPE, SMALL_SHAPE) for with_bias in (True, False)]
+    bwd.append(check_attention_bwd(EVAL_SHAPE, bf16, True, gen))  # the finetune step's shape
+    bwd += [check_attention_bwd(BASE_SHAPE, bf16, True, gen),
+            check_attention_bwd(TINY_SHAPE, bf16, True, gen),
+            check_attention_bwd(PROBE_SHAPE, bf16, True, gen)]
     # Q and dO (or K and V) stream through shared memory: the backward takes
     # any S, and 64-row tiles where S % 128 != 0
-    bwd += [check_attention_bwd((1, LONG, 64, 1), bf16, True, gen),
-            check_attention_bwd((2, 192, 128, 2), bf16, True, gen)]
-    lse_forward = forward_lse_check(eval_shape, gen)
-    folded = (6 * 2 * PRETRAIN_BATCH, 256, 64)                     # (768, 256, 64): calibrate's
-    flash = [check_flash(folded, bf16, gen), check_flash(folded, f32, gen),
-             check_flash((8, 64, 32), bf16, gen), check_flash((8, 64, 32), f32, gen),
+    bwd += [check_attention_bwd(LONG_SHAPE, bf16, True, gen),
+            check_attention_bwd(ODD_TILES_SHAPE, bf16, True, gen)] + fp32_bwd
+    lse_forward = forward_lse_check(EVAL_SHAPE, gen)
+    flash = [check_flash(FOLDED_SHAPE, bf16, gen), check_flash((8, 64, 32), bf16, gen),
              check_flash((2 * PRETRAIN_BATCH, 256, 6, 64), bf16, gen),
-             check_flash((1, LONG, 64), bf16, gen)]
+             check_flash((1, LONG, 64), bf16, gen)] + fp32_flash
     flash_fwd, flash_bwd = [c[0] for c in flash], [c[1] for c in flash]
     rows, width = 2 * PRETRAIN_BATCH * 26, 65536
     ce = [check_fused_ce(rows, width, bf16, True, gen),
@@ -3347,6 +3599,8 @@ def main() -> None:
     sev2_launches = severity_2_pretrain_step(card)
     reset_kernel_counts()
     abinet_launches = abinet_finetune_step(card)
+    reset_kernel_counts()
+    fp32_launches = fp32_step_phase(card)
     opt_launches = optimizers_phase(card)      # counts set to 0 before each optimizer's run
     remat_launches = remat_phase(card)         # and before each of its two runs
     attention_launches = last_selfattention_phase(card)
@@ -3374,7 +3628,8 @@ def main() -> None:
             head["bytes"], head["flops"], getattr(torch, head["dtype"]), measured_rate)[0]
     by_path = {"pretrain": train_launches, "finetune": ft_launches,
                "pretrain_vit_base": base_launches, "pretrain_severity_2": sev2_launches,
-               "finetune_abinet": abinet_launches, "pretrain_sgd_lars": opt_launches,
+               "finetune_abinet": abinet_launches, "fp32_step": fp32_launches,
+               "pretrain_sgd_lars": opt_launches,
                "pretrain_remat": remat_launches, **dp_launches, **tp_launches}
     k1_fwd = {"evaluation": eval_launches, "calibrate": calib_launches["K1-fwd"],
               "last_selfattention": attention_launches,
@@ -3438,4 +3693,4 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == TP_WORKER_FLAG:
         tensor_parallel_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     else:
-        main()
+        main(sys.argv[1:])

@@ -23,7 +23,9 @@ from ccd_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 2e-5
 GRAD_ATOL = 1e-4
-SHAPES = [(2, 32, 3, 8), (2, 256, 2, 32)]  # (b, s, h, d)
+# (b, s, h, d); the last is vit_tiny's head layout (3 heads of 64) at S = 192,
+# where the card's fp32 kernels run 64-row tiles with S % 128 != 0
+SHAPES = [(2, 32, 3, 8), (2, 256, 2, 32), (1, 192, 3, 64)]
 FOLDED = [(4, 64, 32), (2, 32, 16)]       # (bh, s, d)
 
 
@@ -705,3 +707,46 @@ def test_backward_attributes_refuse_what_is_not_built():
                  (64, torch.float16, "dkdv")):
         with pytest.raises(ValueError):
             tfa.backward_kernel_attributes(*args)
+
+
+def test_forward_attributes_refuse_what_is_not_built(monkeypatch):
+    """The forward's resources entry is asked only for kernels that exist: D
+    32 or 64; bf16 with 64- or 128-row tiles, fp32 with 64-row tiles (checked
+    before any build). The bf16 call keeps its form; fp32 has its own entry."""
+    from ccd_tpu_torch.ops import _build
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a refused request reached the build")
+
+    monkeypatch.setattr(_build, "build_libraries", no_build)
+    for args in ((48, 64), (64, 96), (64, 128, torch.float32), (64, 64, torch.float16),
+                 (32, 128, torch.float32), (64, 64, torch.float64)):
+        with pytest.raises(ValueError):
+            tfa.forward_kernel_attributes(*args)
+    asked = []
+    monkeypatch.setattr(tfa, "kernel_attributes", lambda *args: asked.append(args) or {})
+    tfa.forward_kernel_attributes(64, 128)
+    tfa.forward_kernel_attributes(32, 64, torch.bfloat16)
+    tfa.forward_kernel_attributes(64, 64, torch.float32)
+    tfa.forward_kernel_attributes(32, 64, torch.float32)
+    assert asked == [("packed_attention", "attention_forward_attributes", 64, 1),
+                     ("packed_attention", "attention_forward_attributes", 32, 0),
+                     ("packed_attention", "attention_forward_f32_attributes", 64),
+                     ("packed_attention", "attention_forward_f32_attributes", 32)]
+
+
+# the fp32 bounds chip_smoke.py reckons (operations at 67 TFLOP/s): forward at
+# the evaluation shape, backward at ViT-Small's training shape, both at
+# ViT-Tiny's and at vit_micro's (the probe's batch), in ms to three figures
+@pytest.mark.parametrize("direction,shape,ms", [
+    ("forward", (288, 256, 384, 6), 0.433), ("backward", (128, 256, 384, 6), 0.481),
+    ("forward", (128, 256, 192, 3), 0.0962), ("backward", (128, 256, 192, 3), 0.240),
+    ("forward", (32, 256, 64, 2), 0.00801), ("backward", (32, 256, 64, 2), 0.0200)],
+    ids=lambda x: str(x))
+def test_chip_smoke_fp32_attention_bounds(direction, shape, ms):
+    import chip_smoke
+    bound = chip_smoke.attention_bound if direction == "forward" else \
+        chip_smoke.attention_bwd_bound
+    got, by = bound(*shape, torch.float32, True)
+    assert by == "operations"
+    assert float(f"{got:.3g}") == ms, got
