@@ -264,14 +264,18 @@ def _train(config, args, device, layout) -> dict:
                 if not np.isfinite(host["loss"]).all():
                     logging.error(f"Loss is {last['loss']}, stopping training")
                     sys.exit(1)
-                metric_logger.update(loss=last["loss"], lr=last["lr"], wd=last["wd"])
+                # the chunk's mean flood rounds, counted on this rank (host ints)
+                rounds = float(host["cluster_rounds"].mean())
+                metric_logger.update(loss=last["loss"], lr=last["lr"], wd=last["wd"],
+                                     cluster_rounds=rounds)
                 ips = global_batch * (iteration - start_iteration) / (time.time() - start)
                 logging.info(f"it {iteration - 1} epoch {epoch} loss {last['loss']:.4f} "
                              f"(mask {last['mask_loss']:.4f} dino {last['dino_loss']:.4f}) "
-                             f"lr {last['lr']:.2e} {ips:.1f} img/s")
+                             f"lr {last['lr']:.2e} cluster rounds {rounds:.2f} {ips:.1f} img/s")
                 if writer is not None:
                     for k in ("loss", "mask_loss", "dino_loss", "lr", "wd"):
                         writer.add_scalar(f"metric/{k}", last[k], iteration)
+                    writer.add_scalar("metric/cluster_rounds", rounds, iteration)
     finally:
         if writer is not None:
             writer.close()

@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ccd_tpu_torch.charsets import DICTS
+from ccd_tpu_torch.utils.tracing import span
 
 
 class BaseConvertor:
@@ -68,7 +69,8 @@ class BaseConvertor:
         return indexes
 
     def idx2str(self, indexes: Sequence[Sequence[int]]) -> List[str]:
-        return ["".join(self.idx2char[int(i)] for i in index) for index in indexes]
+        with span("convert"):
+            return ["".join(self.idx2char[int(i)] for i in index) for index in indexes]
 
 
 class AttnConvertor(BaseConvertor):
@@ -124,28 +126,30 @@ class AttnConvertor(BaseConvertor):
         """Greedy-decode ``(N, T, C)`` scores to per-sample index/score lists.
 
         Applies a softmax over classes, argmaxes per step, skips PAD ids and
-        stops at the first EOS, matching ``attn.py:107-139``.
+        stops at the first EOS, matching ``attn.py:107-139``. A ``convert``
+        span, as ``idx2str``.
         """
-        outputs = np.asarray(outputs, dtype=np.float64)
-        # softmax over classes
-        m = outputs.max(axis=-1, keepdims=True)
-        e = np.exp(outputs - m)
-        probs = e / e.sum(axis=-1, keepdims=True)
-        max_idx = probs.argmax(axis=-1)
-        max_value = np.take_along_axis(probs, max_idx[..., None], axis=-1)[..., 0]
+        with span("convert"):
+            outputs = np.asarray(outputs, dtype=np.float64)
+            # softmax over classes
+            m = outputs.max(axis=-1, keepdims=True)
+            e = np.exp(outputs - m)
+            probs = e / e.sum(axis=-1, keepdims=True)
+            max_idx = probs.argmax(axis=-1)
+            max_value = np.take_along_axis(probs, max_idx[..., None], axis=-1)[..., 0]
 
-        indexes: List[List[int]] = []
-        scores: List[List[float]] = []
-        for n in range(outputs.shape[0]):
-            str_index: List[int] = []
-            str_score: List[float] = []
-            for char_index, char_score in zip(max_idx[n].tolist(), max_value[n].tolist()):
-                if char_index == self.padding_idx:
-                    continue
-                if char_index == self.end_idx:
-                    break
-                str_index.append(char_index)
-                str_score.append(char_score)
-            indexes.append(str_index)
-            scores.append(str_score)
-        return indexes, scores
+            indexes: List[List[int]] = []
+            scores: List[List[float]] = []
+            for n in range(outputs.shape[0]):
+                str_index: List[int] = []
+                str_score: List[float] = []
+                for char_index, char_score in zip(max_idx[n].tolist(), max_value[n].tolist()):
+                    if char_index == self.padding_idx:
+                        continue
+                    if char_index == self.end_idx:
+                        break
+                    str_index.append(char_index)
+                    str_score.append(char_score)
+                indexes.append(str_index)
+                scores.append(str_score)
+            return indexes, scores

@@ -47,6 +47,7 @@ from ccd_tpu_torch.data.random import TorchKey
 from ccd_tpu_torch.ops.bilateral import bilateral_filter_fused
 from ccd_tpu_torch.ops.image import jax_image_resize
 from ccd_tpu_torch.utils.device import device_constant
+from ccd_tpu_torch.utils.tracing import span
 
 Op = Callable[[TorchKey, torch.Tensor], torch.Tensor]  # (key, x) -> x'
 
@@ -73,11 +74,13 @@ def _select(cands: torch.Tensor, choice: torch.Tensor) -> torch.Tensor:
 
 def one_of(key, x: torch.Tensor, ops: Sequence[Op]) -> torch.Tensor:
     """iaa.OneOf: per-sample uniform choice among ``ops`` (all candidates are
-    computed; the pick is an index, not a one-hot product)."""
-    ks = key.split(len(ops) + 1)
-    cands = torch.stack([op(ks[i], x) for i, op in enumerate(ops)])
-    choice = ks[-1].randint((x.shape[0],), 0, len(ops))
-    return _select(cands, choice)
+    computed; the pick is an index, not a one-hot product). A ``one_of``
+    span bounds the candidates and the pick."""
+    with span("one_of"):
+        ks = key.split(len(ops) + 1)
+        cands = torch.stack([op(ks[i], x) for i, op in enumerate(ops)])
+        choice = ks[-1].randint((x.shape[0],), 0, len(ops))
+        return _select(cands, choice)
 
 
 def sometimes(key, x: torch.Tensor, p: float, op: Op) -> torch.Tensor:

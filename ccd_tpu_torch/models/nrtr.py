@@ -25,6 +25,7 @@ from torch import nn
 
 from ccd_tpu_torch.models.layers import Dense, Dropout, LayerNorm, init_dense_layers
 from ccd_tpu_torch.ops.activations import gelu as _gelu
+from ccd_tpu_torch.utils.tracing import span
 
 _NEG_INF = -1e30
 
@@ -266,13 +267,15 @@ class NRTRDecoder(nn.Module):
         pad+causal mask restricts position t to keys <= t that are non-PAD;
         generated tokens can never be PAD (classifier has no PAD output), so
         incremental decoding attends to exactly the same keys.
+        One ``decode`` span around the whole decode, none per step.
         """
-        enc_kvs, caches, tok, positions = self._decode_state(out_enc)
-        steps: List[torch.Tensor] = []
-        for t in range(self.max_seq_len):
-            probs, tok = self._decode_step(tok, t, enc_kvs, caches, positions)
-            steps.append(probs)
-        return torch.stack(steps, dim=1)  # (B, T, C-1)
+        with span("decode"):
+            enc_kvs, caches, tok, positions = self._decode_state(out_enc)
+            steps: List[torch.Tensor] = []
+            for t in range(self.max_seq_len):
+                probs, tok = self._decode_step(tok, t, enc_kvs, caches, positions)
+                steps.append(probs)
+            return torch.stack(steps, dim=1)  # (B, T, C-1)
 
     def decode_greedy_early_stop(self, out_enc: torch.Tensor) -> torch.Tensor:
         """Early-exit greedy decode (the ``forward_test_speed`` counterpart,
@@ -287,17 +290,18 @@ class NRTRDecoder(nn.Module):
         stay zero. The stopping test reads a flag back from the device, one
         host synchronisation per step; that is accepted on this
         ``--test_speed``-only path. The default eval path uses the exact full
-        decode and is unaffected.
+        decode and is unaffected. One ``decode`` span, as the full decode.
         """
-        enc_kvs, caches, tok, positions = self._decode_state(out_enc)
-        b = out_enc.shape[0]
-        probs_buf = torch.zeros((b, self.max_seq_len, self.num_classes - 1),
-                                dtype=torch.float32, device=out_enc.device)
-        done = torch.zeros((b,), dtype=torch.bool, device=out_enc.device)
-        for t in range(self.max_seq_len):
-            probs, tok = self._decode_step(tok, t, enc_kvs, caches, positions)
-            probs_buf[:, t] = probs
-            done |= tok == self.end_token_id
-            if bool(done.all()):
-                break
-        return probs_buf
+        with span("decode"):
+            enc_kvs, caches, tok, positions = self._decode_state(out_enc)
+            b = out_enc.shape[0]
+            probs_buf = torch.zeros((b, self.max_seq_len, self.num_classes - 1),
+                                    dtype=torch.float32, device=out_enc.device)
+            done = torch.zeros((b,), dtype=torch.bool, device=out_enc.device)
+            for t in range(self.max_seq_len):
+                probs, tok = self._decode_step(tok, t, enc_kvs, caches, positions)
+                probs_buf[:, t] = probs
+                done |= tok == self.end_token_id
+                if bool(done.all()):
+                    break
+            return probs_buf

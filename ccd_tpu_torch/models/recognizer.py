@@ -19,6 +19,7 @@ from torch import nn
 from ccd_tpu_torch.models.heads import MlpEncoder
 from ccd_tpu_torch.models.nrtr import NRTRDecoder
 from ccd_tpu_torch.models.vit import VIT_ARCHS
+from ccd_tpu_torch.utils.tracing import span
 
 _ENCODER_WIDTH = 512  # Mlp(embed_dim -> 512 -> 512) (dino_vision.py:163)
 
@@ -77,10 +78,18 @@ class CCDRecognizer(nn.Module):
         Dropout and stochastic depth follow ``self.training``: in training
         mode ``generator`` draws every mask (and its absence is an error
         where a rate is non-zero); in evaluation mode nothing is drawn.
+
+        Spans (``utils/tracing.py``): ``backbone``, ``encoder``, and
+        ``decoder`` around the teacher-forced decoder; the greedy decodes
+        open their own ``decode``.
         """
-        out_enc = self.encoder(self.extract_feat(img, generator), generator)
+        with span("backbone"):
+            feat = self.extract_feat(img, generator)
+        with span("encoder"):
+            out_enc = self.encoder(feat, generator)
         if train_mode:
-            return self.decoder(out_enc, targets, train_mode=True, generator=generator)
+            with span("decoder"):
+                return self.decoder(out_enc, targets, train_mode=True, generator=generator)
         if test_speed:
             return self.decoder.decode_greedy_early_stop(out_enc)
         return self.decoder(out_enc, None, train_mode=False)

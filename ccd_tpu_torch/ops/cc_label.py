@@ -23,8 +23,12 @@ operations on whatever device the masks live on. Counterpart of
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
+
+from ccd_tpu_torch.utils.tracing import span
 
 _POOLS_PER_ROUND = 2  # 3x3 min-pools between two convergence tests
 
@@ -47,24 +51,28 @@ def _sweep_min(lbl: torch.Tensor, fg: torch.Tensor, big: float, axis: int) -> to
 
 def _propagate(lbl: torch.Tensor, fg: torch.Tensor, big: float):
     """Flood-fill labels to a fixpoint, (B, H, W); returns (labels, rounds).
-    Background pixels hold ``big`` throughout."""
+    Background pixels hold ``big`` throughout. Each round is a
+    ``flood_round`` span, its host read included."""
     rounds = 0
     while True:
-        new = _sweep_min(lbl, fg, big, axis=2)
-        new = _sweep_min(new, fg, big, axis=1)
-        for _ in range(_POOLS_PER_ROUND):
-            pooled = -F.max_pool2d(-new[:, None], 3, stride=1, padding=1)[:, 0]
-            new = torch.where(fg, pooled, new)
-        rounds += 1
-        if torch.equal(new, lbl):  # the one host read of the round
+        with span("flood_round"):
+            new = _sweep_min(lbl, fg, big, axis=2)
+            new = _sweep_min(new, fg, big, axis=1)
+            for _ in range(_POOLS_PER_ROUND):
+                pooled = -F.max_pool2d(-new[:, None], 3, stride=1, padding=1)[:, 0]
+                new = torch.where(fg, pooled, new)
+            rounds += 1
+            converged = torch.equal(new, lbl)  # the one host read of the round
+        if converged:
             return new, rounds
         lbl = new
 
 
 @torch.no_grad()
 def label_clusters(masks: torch.Tensor, num_slots: int = 26, min_area: int = 30
-                   ) -> torch.Tensor:
-    """Batched glyph labeling: (B, H, W) {0,1} masks -> (B, num_slots, H, W).
+                   ) -> Tuple[torch.Tensor, int]:
+    """Batched glyph labeling: (B, H, W) {0,1} masks -> ((B, num_slots, H, W),
+    rounds).
 
     Channel ``s`` is the one-hot support of the s-th surviving character
     component in left-to-right order; empty slots are all-zero. Parity
@@ -72,8 +80,8 @@ def label_clusters(masks: torch.Tensor, num_slots: int = 26, min_area: int = 30
     exact on arbitrary masks, including noisy predicted masks with any
     number of sub-threshold components.
 
-    ``label_clusters.rounds`` holds the flood rounds (= host reads) of the
-    last call.
+    ``rounds``: the flood rounds of this call, a host int; each costs one
+    host read.
     """
     b, h, w = masks.shape
     hw = h * w
@@ -84,7 +92,7 @@ def label_clusters(masks: torch.Tensor, num_slots: int = 26, min_area: int = 30
 
     fg = masks > 0.5
     idx = torch.arange(hw, dtype=torch.float32, device=dev).reshape(1, h, w)
-    lbl, label_clusters.rounds = _propagate(torch.where(fg, idx, big), fg, big)
+    lbl, rounds = _propagate(torch.where(fg, idx, big), fg, big)
 
     # per-component area and column sum, all components at once (component id
     # == root raster index; background lands in the extra bin hw)
@@ -109,7 +117,4 @@ def label_clusters(masks: torch.Tensor, num_slots: int = 26, min_area: int = 30
 
     chans = (flat.reshape(b, 1, h, w) == sel_sorted[:, :, None, None]) & fg[:, None] \
         & valid_sorted[:, :, None, None]
-    return chans.float()
-
-
-label_clusters.rounds = 0
+    return chans.float(), rounds

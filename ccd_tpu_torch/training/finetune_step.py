@@ -30,7 +30,6 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function as _phase  # names the step's phases in a trace
 
 from ccd_tpu_torch.checkpoints.torch_io import generator_payload, restore_generators
 from ccd_tpu_torch.data.augment import normalize
@@ -41,6 +40,7 @@ from ccd_tpu_torch.parallel.mesh import Group, all_reduce_flat, all_reduce_sum, 
 from ccd_tpu_torch.schedules import cosine_iter_schedule
 from ccd_tpu_torch.training.optim import (AdamWState, adamw_init, adamw_updates,
                                           clip_gradients_global_norm, weight_decay_mask)
+from ccd_tpu_torch.utils.tracing import span
 
 
 
@@ -125,13 +125,13 @@ def make_finetune_step(*, base_lr: float, min_lr: float, total_iters: int, warmu
         params = list(named.values())
         mask = weight_decay_mask(named)
 
-        with _phase("forward"):
+        with span("forward"):
             logits, _ = model(images, targets, train_mode=True, generator=state.generator)
-        with _phase("tf_loss"):
+        with span("tf_loss"):
             loss = tf_loss(logits, targets, model.padding_idx, group)
-        with _phase("backward"):
+        with span("backward"):
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        with torch.no_grad(), _phase("update"):
+        with torch.no_grad(), span("update"):
             # a parameter the loss does not reach (the ViT's segmentation
             # taps) has a zero gradient, not none: AdamW still runs on it
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
@@ -162,7 +162,7 @@ def make_fused_finetune_step(*, aug_fn: Optional[Callable] = None, **kwargs
         # converted here, on the device
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
-        with _phase("augment"):
+        with span("augment"):
             if aug_fn is not None:
                 images = aug_fn(TorchKey(state.aug_generator), images)
             x = normalize(images)

@@ -54,7 +54,6 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function as _phase  # names the step's phases in a trace
 
 from ccd_tpu_torch.checkpoints.torch_io import generator_payload, restore_generators
 from ccd_tpu_torch.data.augment import pretrain_views
@@ -72,6 +71,7 @@ from ccd_tpu_torch.training.optim import (
     AdamWState, MomentumState, OptState, cancel_last_layer_grads, clip_gradients_per_param,
     ema_update, optimizer_init, optimizer_updates, weight_decay_mask,
 )
+from ccd_tpu_torch.utils.tracing import span
 
 _EMA_BRANCHES = ("backbone.", "head.")  # what the teacher tracks (train.py:268-272)
 # split over the model group along out_dim: the JAX package's column shard of
@@ -248,7 +248,12 @@ def make_pretrain_step(
     group: Union[Group, Layout] = None,
 ) -> Callable[..., Tuple[PretrainState, Dict[str, object]]]:
     """Build the train step; ``step(state, images, masks, theta)`` advances
-    ``state`` in place and returns it with the step's metrics.
+    ``state`` in place and returns it with the step's metrics: the losses
+    (device scalars, global), ``lr``, ``wd`` and ``epoch`` (host values of
+    the schedule) and ``cluster_rounds``, a host int: the flood rounds of
+    this rank's glyph clustering (``label_clusters``), one host read each,
+    counted on the rank and not reduced across ranks. It climbs when the
+    self-predicted masks take over from the ground truth.
 
     ``use_fused_ce``: route the DINO CE through the fused kernel (one pass
     over the (2B*T, out_dim) logits, cross-view pairing by addressing,
@@ -292,25 +297,25 @@ def make_pretrain_step(
         x = torch.cat([images[:, 1], images[:, 2]], dim=0)  # (2B, H, W, 3)
         grid = affine_grid(theta[:, :2, :].float(), (h, w))
 
-        with _phase("student_encode"):
+        with span("student_encode"):
             region_f, taps = student.encode(x, state.generator)
-        with _phase("segment"):
+        with span("segment"):
             seg_logits = student.segment(taps)
 
         with torch.no_grad():
             # ---- glyph clusters: GT masks early, self-predicted later
             # (dino_vision.py:59-70); non-differentiable pseudo-labels
-            with _phase("label_clusters"):
+            with span("label_clusters"):
                 if epoch < gt_mask_epochs:
                     cluster_src_mask = masks
                 else:
                     cluster_src_mask = (torch.softmax(seg_logits.float(), dim=-1)[..., 1]
                                         > 0.5).float()[:b]
-                clusters_source = label_clusters(cluster_src_mask, num_slots=num_slots)
+                clusters_source, rounds = label_clusters(cluster_src_mask, num_slots=num_slots)
             # warp clusters + GT mask to the view-2 frame in ONE packed-int32
             # bilinear warp (27 binary channels -> 4 single-channel gathers;
             # equal to per-channel grid_sample + >0.1, see warp.py)
-            with _phase("warp"):
+            with span("warp"):
                 shifts = torch.arange(num_slots, dtype=torch.int32, device=x.device)
                 packed = ((clusters_source > 0.5).to(torch.int32)
                           << shifts[None, :, None, None]).sum(dim=1, dtype=torch.int32)
@@ -319,24 +324,24 @@ def make_pretrain_step(
                 clusters_image = warped[..., :num_slots].permute(0, 3, 1, 2)
                 warped_gt = warped[..., num_slots]
                 clusters = torch.cat([clusters_source, clusters_image], dim=0)
-            with _phase("teacher_encode"):
+            with span("teacher_encode"):
                 t_region_f, _ = teacher.encode(x)
-            with _phase("pool_head"):
+            with span("pool_head"):
                 t_logits, _ = teacher.pool_project(t_region_f, clusters, flat=fused)
 
         # flat=True (fused path) emits view-stacked (2B*T, K) rows — the
         # (N, T) collapse happens on the 256-wide head INPUT, not on the
         # out_dim-wide output
-        with _phase("pool_head"):
+        with span("pool_head"):
             s_logits, index = student.pool_project(region_f, clusters, flat=fused)
             valid = char_validity_mask(index[:b], num_slots)
 
         # ---- losses (train.py:234-238 + Dino_loss.py:59-105);
         # warped_gt came from the packed warp above
-        with _phase("seg_loss"):
+        with span("seg_loss"):
             seg_gt = torch.cat([masks, warped_gt], dim=0)
             l_seg = seg_loss(seg_logits, seg_gt, data)
-        with _phase("dino_ce"):
+        with span("dino_ce"):
             if fused:
                 l_dino = dino_char_loss_fused(s_logits, t_logits, valid, state.center,
                                               teacher_temp, student_temp, group=data)
@@ -347,9 +352,9 @@ def make_pretrain_step(
 
         named = dict(student.named_parameters())
         names, params = list(named), list(named.values())
-        with _phase("backward"):
+        with span("backward"):
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        with torch.no_grad(), _phase("update"):
+        with torch.no_grad(), span("update"):
             # a parameter the loss does not reach (the frozen weight-norm gain)
             # has a zero gradient, not none: the optimizer still runs on it
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
@@ -380,7 +385,7 @@ def make_pretrain_step(
 
         state.iteration = it + 1
         metrics = {"loss": losses[0], "mask_loss": losses[1], "dino_loss": losses[2],
-                   "lr": lr, "wd": wd, "epoch": epoch}
+                   "lr": lr, "wd": wd, "epoch": epoch, "cluster_rounds": rounds}
         return state, metrics
 
     return step
@@ -422,7 +427,7 @@ def make_fused_pretrain_step(*, severity: int = 5, **kwargs
             raw = raw.float() / 255.0
         if masks.dtype != torch.float32:
             masks = masks.float()
-        with _phase("augment"):
+        with span("augment"):
             views, theta = pretrain_views(TorchKey(state.aug_generator), raw, severity=severity)
         return inner(state, views, masks, theta)
 
@@ -434,7 +439,7 @@ def make_multi_pretrain_step(*, severity: int = 5, **kwargs
     """K fused steps over K stacked batches: ``step(state, raws (K, B, H, W,
     3), masks (K, B, H, W)) -> (state, metrics stacked along K)``, as the JAX
     package's ``lax.scan``. The losses stay on the device; the host-side
-    schedule values are stacked on the CPU."""
+    schedule values and ``cluster_rounds`` are stacked on the CPU."""
     inner = make_fused_pretrain_step(severity=severity, **kwargs)
 
     def step(state: PretrainState, raws: torch.Tensor, masks: torch.Tensor):

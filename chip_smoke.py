@@ -150,7 +150,6 @@ from ccd_tpu_torch.losses import teacher_temp_schedule
 from ccd_tpu_torch.ops import _build
 from ccd_tpu_torch.ops.bilateral import (bilateral_filter_fused, bilateral_filter_plain,
                                          kernel_attributes as bilateral_attributes)
-from ccd_tpu_torch.ops.cc_label import label_clusters
 from ccd_tpu_torch.ops.kmeans_mask import kmeans_foreground_mask
 from ccd_tpu_torch.parallel.mesh import (collective_counts, collective_counts_by_group,
                                          init_distributed, pretrain_mesh,
@@ -1218,7 +1217,7 @@ def plain_versions_in_place_of_kernels():
 
 
 class PhaseEvents:
-    """Stands in for the step's phase marker: CUDA events around each phase."""
+    """Stands in for the step module's span helper: CUDA events around each phase."""
     records = []
 
     def __init__(self, name):
@@ -1433,17 +1432,17 @@ def pretrain_path(card: str) -> dict:
                                  f"{LAUNCHES_PER_STEP}")
             history.append(dict(metrics, regime=regime))
             step_ms[regime].append(ms)
-            flood_rounds.append(label_clusters.rounds)
+            flood_rounds.append(int(metrics["cluster_rounds"]))
     peak_bytes = torch.cuda.max_memory_allocated()
 
     # ---- where a step's time goes: CUDA events around the step's phases
     PhaseEvents.records = []
-    marker = pretrain_step_mod._phase
-    pretrain_step_mod._phase = PhaseEvents
+    marker = pretrain_step_mod.span
+    pretrain_step_mod.span = PhaseEvents
     try:
         _, made, phased_ms = run_step(step_gt, state)
     finally:
-        pretrain_step_mod._phase = marker
+        pretrain_step_mod.span = marker
     phases = dict.fromkeys(STEP_PHASES, 0.0)
     for name, a, b in PhaseEvents.records:
         phases[name] += a.elapsed_time(b)
@@ -1579,12 +1578,12 @@ def finetune_path(card: str) -> dict:
 
     # ---- where a step's time goes: CUDA events around the step's phases
     PhaseEvents.records = []
-    marker = finetune_step_mod._phase
-    finetune_step_mod._phase = PhaseEvents
+    marker = finetune_step_mod.span
+    finetune_step_mod.span = PhaseEvents
     try:
         _, made, phased_ms = run_step(state)
     finally:
-        finetune_step_mod._phase = marker
+        finetune_step_mod.span = marker
     phases = dict.fromkeys(FT_PHASES, 0.0)
     for name, a, b in PhaseEvents.records:
         phases[name] += a.elapsed_time(b)
@@ -2724,7 +2723,8 @@ def convergence_short_phase(card: str) -> None:
                          "name, or the pretraining did not read through the native reader")
 
 
-PRETRAIN_TAGS = {f"metric/{k}" for k in ("loss", "mask_loss", "dino_loss", "lr", "wd")}
+PRETRAIN_TAGS = {f"metric/{k}" for k in ("loss", "mask_loss", "dino_loss", "lr", "wd",
+                                          "cluster_rounds")}
 FINETUNE_TAGS = {"metric/train_loss", "metric/lr", "metric/eval_acc", "Mask/Input_image",
                  "Mask/vis_Maps"}
 
@@ -2732,7 +2732,8 @@ FINETUNE_TAGS = {"metric/train_loss", "metric/lr", "metric/eval_acc", "Mask/Inpu
 def tensorboard_report(log_dir: str, log: str, want: set) -> dict:
     """Whether a CLI made its TensorBoard writer (it logs the directory, or
     why there is none) and, where it did, the tags of its event files as
-    TensorBoard reads them: those of the JAX CLI, or the run fails. Without
+    TensorBoard reads them: those of the JAX CLI (the pretraining CLI adds
+    ``metric/cluster_rounds``), or the run fails. Without
     ``tensorboard`` on the machine the CLI trains without a writer, as the
     JAX CLI does: reported, not a failure."""
     if "TensorBoard: writing" not in log:

@@ -23,7 +23,7 @@ MODULES = ("ops.flash_attention", "ops.fused_dino_ce", "ops.image", "ops.pooling
            "evaluation.runner", "models.recognizer", "models.nrtr",
            "checkpoints.torch_export", "cli.parity_eval", "cli.overfit_probe",
            "cli.generate_masks", "ops.kmeans_mask", "native", "cli.convergence_demo",
-           "cli.debug_decode")
+           "cli.debug_decode", "utils.tracing")
 
 
 def _sources():

@@ -74,8 +74,12 @@ def test_train_cli_writes_one_checkpoint_directory_from_rank_0_and_resumes(ranks
         assert first["iteration"] == first["checkpoint"] == 2
         assert second["iteration"] == second["checkpoint"] == 4
         assert r["train_cli"]["resumed"]
-    assert ranks["results"][0]["train_cli"]["second"]["last"] == \
-        ranks["results"][1]["train_cli"]["second"]["last"]
+    # the losses and the schedule are global; the flood rounds are each
+    # rank's own (its share of the masks), so they may differ
+    last = [dict(r["train_cli"]["second"]["last"]) for r in ranks["results"]]
+    rounds = [m.pop("cluster_rounds") for m in last]
+    assert all(n >= 1 for n in rounds)
+    assert last[0] == last[1]
 
 
 def test_collective_audit_prints_the_gradient_all_reduce(ranks):

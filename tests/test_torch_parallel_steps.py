@@ -173,7 +173,7 @@ def runs(tmp_path_factory):
 
 def test_ranks_hold_unequal_valid_counts(runs):
     arrays, half = runs["arrays"], W.GLOBAL_BATCH // W.WORLD
-    clusters = label_clusters(torch.from_numpy(arrays["pretrain_masks_0"]), num_slots=26)
+    clusters, _ = label_clusters(torch.from_numpy(arrays["pretrain_masks_0"]), num_slots=26)
     slots = (clusters.flatten(2).amax(-1) > 0).sum(1).clamp(3, 26) + 1  # char_validity_mask
     assert slots.tolist() == [4, 4, 6, 7]
     tgt = arrays["finetune_targets_0"][:, 1:]

@@ -178,11 +178,13 @@ def _speck_storm():
 
 
 def _assert_same_labels(masks):
+    """The port's labels against JAX's; returns them and the flood rounds."""
     ref = np.asarray(jax_label_clusters(jnp.asarray(masks)))
-    out = label_clusters(torch.from_numpy(masks))
+    out, rounds = label_clusters(torch.from_numpy(masks))
     assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert isinstance(rounds, int) and rounds >= 1
     np.testing.assert_array_equal(out.numpy(), ref)
-    return out.numpy()
+    return out.numpy(), rounds
 
 
 @pytest.mark.parametrize("kind", ["specks", "blobs", "mixed"])
@@ -211,7 +213,7 @@ def test_label_clusters_hard_cases_equal_jax():
     area[2:4, 2:4] = 1.0         # 4 px, below min_area
     area[10:20, 40:50] = 1.0
     masks = np.stack([_serpentine(), _speck_storm(), full, empty, order, area])
-    out = _assert_same_labels(masks)
+    out, _ = _assert_same_labels(masks)
     assert out[0, 0].sum() == masks[0].sum() and out[0, 1:].sum() == 0  # one snake
     assert out[1, 0].sum() == 200 and out[1, 1:].sum() == 0             # specks filtered
     assert out[2, 0].sum() == 32 * 128 and out[3].sum() == 0
@@ -224,6 +226,6 @@ def test_label_clusters_more_than_26_glyphs_keeps_the_first_26_survivors():
     for i in range(30):            # 30 components of area 36, two rows of 15
         r, c = (2, 8 * i) if i < 15 else (20, 8 * (i - 15))
         mask[0, r:r + 6, c:c + 6] = 1.0
-    out = _assert_same_labels(mask)
+    out, rounds = _assert_same_labels(mask)
     assert (out[0].sum((1, 2)) == 36).all()
-    assert label_clusters.rounds >= 1
+    assert rounds >= 1

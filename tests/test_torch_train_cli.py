@@ -112,7 +112,10 @@ def test_multi_step_is_k_fused_steps():
     for raw, mask in zip(raws, masks):
         single, m = fused(single, raw, mask)
         history.append(m)
-    assert set(stacked) == {"loss", "mask_loss", "dino_loss", "lr", "wd", "epoch"}
+    assert set(stacked) == {"loss", "mask_loss", "dino_loss", "lr", "wd", "epoch",
+                            "cluster_rounds"}
+    rounds = stacked["cluster_rounds"]  # host ints, stacked on the CPU
+    assert rounds.dtype == torch.int64 and rounds.device.type == "cpu" and (rounds >= 1).all()
     for k, v in stacked.items():
         assert v.shape == (3,)
         np.testing.assert_array_equal(v.numpy(), np.array([float(m[k]) for m in history]), k)
@@ -307,7 +310,8 @@ def test_train_cli_at_severity_2_writes_the_jax_clis_scalars(tmp_path, monkeypat
     assert all(np.isfinite(out["last"][k]) for k in ("loss", "mask_loss", "dino_loss"))
     [writer] = recorded_writers
     assert writer.name == "smoke_pretrain" and writer.closed and not writer.images
-    tags = [f"metric/{k}" for k in ("loss", "mask_loss", "dino_loss", "lr", "wd")]
+    tags = [f"metric/{k}" for k in ("loss", "mask_loss", "dino_loss", "lr", "wd",
+                                    "cluster_rounds")]
     assert [(tag, step) for tag, _, step in writer.scalars] == \
         [(tag, step) for step in (1, 2) for tag in tags]
     assert all(np.isfinite(value) for _, value, _ in writer.scalars)
