@@ -10,8 +10,9 @@ has no other home for them.)
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -105,6 +106,26 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), self.cast_param("weight"),
                         self.cast_param("bias"))
+
+
+@contextlib.contextmanager
+def uncached_casts(module: nn.Module) -> Iterator[None]:
+    """Inside, every :class:`Dense` of ``module`` casts each parameter afresh,
+    once, into a cache of its own that is dropped on the way out.
+
+    A CUDA graph captured inside reads the fp32 parameters and holds its own
+    cast copies: an in-place update of a parameter reaches the next replay,
+    and no copy that the graph reads can be freed by the outer cache
+    replacing it."""
+    dense = [m for m in module.modules() if isinstance(m, Dense)]
+    kept = [m._cast_cache for m in dense]
+    for m in dense:
+        m._cast_cache = {}
+    try:
+        yield
+    finally:
+        for m, cache in zip(dense, kept):
+            m._cast_cache = cache
 
 
 class LayerNorm(nn.LayerNorm):

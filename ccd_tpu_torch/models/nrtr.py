@@ -12,19 +12,24 @@ greedy decoding is a Python loop over steps with per-layer KV caches that are
 updated in place — exactly output-equivalent (causal masking + the fact that
 PAD can never be produced make incremental decoding identical in exact
 arithmetic) at ~T x less compute. Everything here is plain ``torch`` calls:
-the JAX package runs the decoder outside any hand-written kernel too.
+the JAX package runs the decoder outside any hand-written kernel too. On the
+card the greedy decode replays as one CUDA graph per input shape
+(:meth:`NRTRDecoder.decode_greedy`).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import itertools
+from typing import Hashable, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ccd_tpu_torch.models.layers import Dense, Dropout, LayerNorm, init_dense_layers
+from ccd_tpu_torch.models.layers import (Dense, Dropout, LayerNorm, init_dense_layers,
+                                         uncached_casts)
 from ccd_tpu_torch.ops.activations import gelu as _gelu
+from ccd_tpu_torch.utils.cuda_graphs import GraphCache
 from ccd_tpu_torch.utils.tracing import span
 
 _NEG_INF = -1e30
@@ -191,6 +196,7 @@ class NRTRDecoder(nn.Module):
         self.layer_norm = LayerNorm(d_model, 1e-6, dtype)
         # PAD is assumed and never predicted (nrtr_decoder.py:76-77)
         self.classifier = Dense(d_model, num_classes - 1, dtype=dtype)
+        self.decode_graphs = GraphCache("decode_graph")
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -267,15 +273,52 @@ class NRTRDecoder(nn.Module):
         pad+causal mask restricts position t to keys <= t that are non-PAD;
         generated tokens can never be PAD (classifier has no PAD output), so
         incremental decoding attends to exactly the same keys.
-        One ``decode`` span around the whole decode, none per step.
+
+        Where :meth:`graphable` holds, the decode goes through
+        ``self.decode_graphs`` (``utils/cuda_graphs.py::GraphCache``), keyed by
+        :meth:`graph_key`: a key's first call runs eagerly, its second captures
+        the whole decode (the state and all steps unrolled, ``t`` a Python int
+        in each) and later calls replay it, the same operations in the same
+        order as the eager decode. Anywhere else the decode runs eagerly.
+        One ``decode`` span around the whole decode, none per step; inside
+        it a ``decode_graph`` span around each replay.
         """
         with span("decode"):
-            enc_kvs, caches, tok, positions = self._decode_state(out_enc)
-            steps: List[torch.Tensor] = []
-            for t in range(self.max_seq_len):
-                probs, tok = self._decode_step(tok, t, enc_kvs, caches, positions)
-                steps.append(probs)
-            return torch.stack(steps, dim=1)  # (B, T, C-1)
+            if self.graphable(out_enc):
+                return self.decode_graphs(self.graph_key(out_enc), self._decode_captured,
+                                          out_enc)
+            return self._decode_steps(out_enc)
+
+    def graphable(self, out_enc: torch.Tensor) -> bool:
+        """Whether the greedy decode may replay a graph: ``out_enc`` on the
+        card, the module in evaluation mode (no dropout draws), no autograd
+        (a replay records no backward) and no capture already under way (the
+        decode then joins it eagerly)."""
+        return (out_enc.is_cuda and not self.training and not torch.is_grad_enabled()
+                and not torch.cuda.is_current_stream_capturing())
+
+    def graph_key(self, out_enc: torch.Tensor) -> Hashable:
+        """What a captured decode depends on: the input's shape, dtype and
+        device, inference mode (its tensors refuse updates outside it), and
+        the address of every parameter and buffer. A module whose tensors
+        were replaced (``.to()``, a new module) gets a new key; updates in
+        place keep the key and reach the replay."""
+        return (tuple(out_enc.shape), out_enc.dtype, out_enc.device,
+                torch.is_inference_mode_enabled(),
+                tuple(t.data_ptr() for t in itertools.chain(self.parameters(), self.buffers())))
+
+    def _decode_captured(self, out_enc: torch.Tensor) -> torch.Tensor:
+        with uncached_casts(self):
+            return self._decode_steps(out_enc)
+
+    def _decode_steps(self, out_enc: torch.Tensor) -> torch.Tensor:
+        """The eager greedy decode (no span)."""
+        enc_kvs, caches, tok, positions = self._decode_state(out_enc)
+        steps: List[torch.Tensor] = []
+        for t in range(self.max_seq_len):
+            probs, tok = self._decode_step(tok, t, enc_kvs, caches, positions)
+            steps.append(probs)
+        return torch.stack(steps, dim=1)  # (B, T, C-1)
 
     def decode_greedy_early_stop(self, out_enc: torch.Tensor) -> torch.Tensor:
         """Early-exit greedy decode (the ``forward_test_speed`` counterpart,
@@ -290,7 +333,8 @@ class NRTRDecoder(nn.Module):
         stay zero. The stopping test reads a flag back from the device, one
         host synchronisation per step; that is accepted on this
         ``--test_speed``-only path. The default eval path uses the exact full
-        decode and is unaffected. One ``decode`` span, as the full decode.
+        decode and is unaffected. It never replays a graph. One ``decode``
+        span, as the full decode.
         """
         with span("decode"):
             enc_kvs, caches, tok, positions = self._decode_state(out_enc)

@@ -12,6 +12,10 @@ shipped configurations, with random weights from a seed:
   * the recognizer's evaluation (ViT-Small + 6-layer NRTR greedy decode, bf16,
     batch 288, ``ccd_finetune_ard.yaml``) over synthetic LMDBs through
     ``evaluate_benchmarks`` as the CLI calls it;
+  * the greedy decode replayed from its CUDA graphs (``decode_graph``):
+    batches of 1024 and a ragged 1000, three different batches a size and
+    the parameters updated in place between calls, each call bit for bit
+    equal to the eager decode; both sides' host ms and the graphs held;
   * the pretraining step on raw images (on-device severity-5 augmentation
     with the bilateral filter, three views and theta; student/teacher
     ViT-Small, SegHead, glyph clusters, char pooling, 65536-wide DINO head,
@@ -91,9 +95,10 @@ shipped configurations, with random weights from a seed:
     python3 chip_smoke.py --only attention_fp32 --only fp32_step [--kernels-from DIR]
 
 runs only the fp32 attention cases of the kernel checks and the fp32 step
-after the build; with ``--kernels-from`` each also with the attention
-kernels built from another checkout's sources (the parent unpacked by ``git
-archive``, say), in turns with this tree's.
+after the build (``--only decode_graph``: the decode's graphs alone); with
+``--kernels-from`` each also with the attention kernels built from another
+checkout's sources (the parent unpacked by ``git archive``, say), in turns
+with this tree's.
 
 It checks that each path went through the kernels (launch counts set to 0
 just before a path and read just after) and that its output agrees with a
@@ -1072,6 +1077,112 @@ def device_busy(fn):
         return wall_ms, None, [], 0
     top = [{"kernel": k[:60], "ms": ms, "calls": n} for ms, n, k in rows[:8]]
     return wall_ms, sum(r[0] for r in rows), top, sum(r[1] for r in rows)
+
+
+def decode_graph_phase(card: str) -> dict:
+    """The greedy decode replayed from its CUDA graphs against the eager
+    decode, bit for bit: the evaluation configuration's decoder (bf16, random
+    weights from ``SEED``) on the encoder's output of random crops, three
+    different batches at 1024 and at a ragged 1000 (the first call eager, the
+    second captured, the third replayed: a stale static input would show),
+    then every parameter updated in place and the three batches of 1024
+    again, each a replay of the same graph. Host ms (the call's return) and
+    wall ms (synchronised) a decode of 1024 on both sides, and the graphs
+    held."""
+    config = Config(CONFIG)
+    model, _ = build_recognizer(config, device="cuda",
+                                generator=torch.Generator().manual_seed(SEED))
+    model.eval()
+    dec = model.decoder
+    cache = dec.decode_graphs
+    captures = []
+    capture = cache.capture
+    cache.capture = lambda fn, x: (captures.append(tuple(x.shape)), capture(fn, x))[1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    sizes = (1024, 1000)
+
+    def encoded(n):
+        images = torch.randint(0, 256, (n, 32, 128, 3), dtype=torch.uint8, device="cuda",
+                               generator=gen)
+        return model.encoder(model.extract_feat(normalise(images)))
+
+    def held(enc, what):
+        out, ref = dec.decode_greedy(enc), dec._decode_steps(enc)
+        equal = torch.equal(out, ref)
+        calls.append({"batch": enc.shape[0], "call": what, "graphs": len(cache),
+                      "bit_equal": equal, "max_abs_diff": float((out - ref).abs().max())})
+        if not equal:
+            raise SystemExit(f"decode_graph: the {what} at batch {enc.shape[0]} differs from "
+                             f"the eager decode by {calls[-1]['max_abs_diff']}")
+        return out
+
+    calls = []
+    with torch.no_grad():
+        encs = {n: [encoded(n) for _ in range(3)] for n in sizes}
+        for n in sizes:
+            for enc, what in zip(encs[n], ("eager call", "capture", "replay")):
+                held(enc, what)
+        if captures != [tuple(encs[n][0].shape) for n in sizes]:
+            raise SystemExit(f"decode_graph: captures {captures}, expected one a size")
+        before = dec.decode_greedy(encs[sizes[0]][0])
+        g = torch.Generator().manual_seed(SEED + 18)
+        for p in dec.parameters():
+            p.add_((1e-2 * torch.randn(p.shape, generator=g)).to(p.device))
+        after = [held(enc, "replay after an update in place") for enc in encs[sizes[0]]]
+        if len(captures) != len(sizes) or torch.equal(after[0], before):
+            raise SystemExit("decode_graph: the update in place did not reach the replay "
+                             f"(captures {captures})")
+        torch.cuda.set_sync_debug_mode("error")  # a replay waits for nothing on the host
+        try:
+            dec.decode_greedy(encs[sizes[0]][1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+        def timed(fn, reps=5):
+            host, wall = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(host), statistics.median(wall)
+
+        def behind(fn, reps=5):  # host ms of a call issued while the card runs another
+            host = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                fn()
+                t0 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            return statistics.median(host)
+
+        def profiled_host(fn, reps=5):  # host ms of a call under the CPU+CUDA profiler
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                return timed(fn, reps)[0]
+
+        enc = encs[sizes[0]][2]
+        eager_host, eager_wall = timed(lambda: dec._decode_steps(enc))
+        graph_host, graph_wall = timed(lambda: dec.decode_greedy(enc))
+        busy = {"eager": behind(lambda: dec._decode_steps(enc)),
+                "graph": behind(lambda: dec.decode_greedy(enc))}
+        profiled = {"eager": profiled_host(lambda: dec._decode_steps(enc)),
+                    "graph": profiled_host(lambda: dec.decode_greedy(enc))}
+    result = {"phase": "decode_graph", "gpu": card, "config": "ccd_finetune_ard.yaml",
+              "dtype": "bfloat16", "calls": calls, "captures": len(captures),
+              "graphs_held": len(cache), "update_in_place_reached_the_replay": True,
+              "host_ms_a_decode_of_1024": {"eager": eager_host, "graph": graph_host},
+              "wall_ms_a_decode_of_1024": {"eager": eager_wall, "graph": graph_wall},
+              "host_ms_behind_a_busy_card": busy, "host_ms_under_the_profiler": profiled,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(result)
+    del model, dec, cache, encs
+    torch.cuda.empty_cache()
+    return result
 
 
 def evaluation_path(card: str) -> int:
@@ -3423,7 +3534,8 @@ def parse_args(argv):
                     "named by --only.")
     parser.add_argument("--only", action="append", choices=ONLY_PHASES,
                         help="run only this phase after the build (repeatable): the fp32 "
-                             "attention cases of the kernels phase, or the fp32 ViT-Tiny step")
+                             "attention cases of the kernels phase, the fp32 ViT-Tiny step, or "
+                             "the greedy decode's CUDA graphs against the eager decode")
     parser.add_argument("--kernels-from", metavar="DIR",
                         help="with --only: run each phase also with the attention kernels "
                              "built from DIR/ccd_tpu_torch/csrc (a checkout of another commit, "
@@ -3435,7 +3547,7 @@ def parse_args(argv):
     return args
 
 
-ONLY_PHASES = ("attention_fp32", "fp32_step")
+ONLY_PHASES = ("attention_fp32", "fp32_step", "decode_graph")
 
 
 def only_phases(card: str, phases, other) -> None:
@@ -3454,7 +3566,9 @@ def only_phases(card: str, phases, other) -> None:
             run(phase, other)
 
     for phase in phases:
-        if other is None:
+        if phase == "decode_graph":  # no attention kernel: the decoder is plain torch
+            decode_graph_phase(card)
+        elif other is None:
             run(phase, "this tree")
         elif phase == "attention_fp32":
             with_other(phase)
@@ -3590,6 +3704,7 @@ def main(argv=()) -> None:
     calib_launches = calib["launches"]
     reset_kernel_counts()
     eval_launches = evaluation_path(card)
+    decode_graph_phase(card)
     reset_kernel_counts()
     train_launches = pretrain_path(card)
     reset_kernel_counts()
