@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ccd_tpu_torch.ops.layer_norm import layer_norm
 from ccd_tpu_torch.parallel.mesh import all_reduce_sum, world
 
 # the standard deviation of a unit normal truncated at +-2 sigma
@@ -129,16 +130,16 @@ def uncached_casts(module: nn.Module) -> Iterator[None]:
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics and arithmetic, output in ``dtype``."""
+    """LayerNorm with fp32 statistics and arithmetic, output in ``dtype``:
+    one pass of ``ops/layer_norm.py``'s kernel on the card, forward and
+    backward, its plain version on the CPU."""
 
     def __init__(self, dim: int, eps: float, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=eps)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
-                         self.eps)
-        return y.to(self.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
 
 
 class Conv2d(nn.Conv2d):

@@ -69,9 +69,11 @@ class CCDPretrainModel(nn.Module):
     def encode(self, images: torch.Tensor, generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """images (N, H, W, 3) -> (region_f (N, gh, gw, E), taps). ``generator``
-        draws the drop-path masks in training mode."""
+        draws the drop-path masks in training mode. Only a model with a seg
+        head computes the taps (the teacher's list is empty)."""
         n, h, w, _ = images.shape
-        tokens, taps = self.backbone(images, generator)
+        tokens, taps = self.backbone(images, generator,
+                                     with_taps=self.segmentation is not None)
         gh, gw = h // self.patch_size, w // self.patch_size
         return tokens.reshape(n, gh, gw, tokens.shape[-1]), taps
 

@@ -63,7 +63,7 @@ class CCDRecognizer(nn.Module):
 
     def extract_feat(self, img: torch.Tensor,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        tokens, _ = self.backbone(img, generator)
+        tokens, _ = self.backbone(img, generator, with_taps=False)
         return tokens
 
     def forward(self, img: torch.Tensor, targets: Optional[torch.Tensor] = None,

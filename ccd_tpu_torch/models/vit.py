@@ -279,9 +279,13 @@ class VisionTransformer(nn.Module):
         tokens = tokens + self._interpolate_pos_encoding(tokens.shape[1], h, w).to(tokens.dtype)
         return self.pos_drop(tokens, generator)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """x: (B, H, W, 3) NHWC -> (tokens (B, N, E), [3x (B, gh, gw, E) taps])."""
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                with_taps: bool = True) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """x: (B, H, W, 3) NHWC -> (tokens (B, N, E), [3x (B, gh, gw, E) taps]).
+
+        ``with_taps=False``: the ``norm_seg`` taps are not computed and the
+        list is empty (for callers with no seg head to read them: the
+        recognizer, the pretraining teacher); the tokens are the same."""
         b, h, w, _ = x.shape
         gh, gw = h // self.patch_size, w // self.patch_size
         tokens = self.prepare_tokens(x, generator)
@@ -289,7 +293,7 @@ class VisionTransformer(nn.Module):
         remat = self.remat and torch.is_grad_enabled()
         for index, blk in enumerate(self.blocks):
             tokens = remat_block(blk, tokens, generator) if remat else blk(tokens, generator)
-            if index + 1 in self.out_indices:
+            if with_taps and index + 1 in self.out_indices:
                 tap = self.norm_seg[len(taps)](tokens)
                 taps.append(tap.reshape(b, gh, gw, self.embed_dim))
         return self.norm(tokens), taps

@@ -95,13 +95,16 @@ shipped configurations, with random weights from a seed:
     python3 chip_smoke.py --only attention_fp32 --only fp32_step [--kernels-from DIR]
 
 runs only the fp32 attention cases of the kernel checks and the fp32 step
-after the build (``--only decode_graph``: the decode's graphs alone); with
+after the build (``--only decode_graph``: the decode's graphs alone;
+``--only layer_norm``: the LayerNorm kernels against the plain chain at the
+main paths' shapes, with their times beside their bounds); with
 ``--kernels-from`` each also with the attention kernels built from another
 checkout's sources (the parent unpacked by ``git archive``, say), in turns
 with this tree's.
 
 It checks that each path went through the kernels (launch counts set to 0
-just before a path and read just after) and that its output agrees with a
+just before a path and read just after; every LayerNorm of a path counted
+from the model) and that its output agrees with a
 run in which the script puts the plain versions in the kernels' place. Every
 phase that fails ends the run with a non-zero exit code.
 
@@ -130,6 +133,7 @@ import torch.nn.functional as F
 import ccd_tpu_torch
 import ccd_tpu_torch.data.aug_ops as aug_ops_mod
 import ccd_tpu_torch.losses.losses as losses_mod
+import ccd_tpu_torch.models.layers as layers_mod
 import ccd_tpu_torch.models.pretrain as pretrain_model_mod
 import ccd_tpu_torch.models.vit as vit_mod
 import ccd_tpu_torch.ops.flash_attention as flash_attention_mod
@@ -156,6 +160,11 @@ from ccd_tpu_torch.ops import _build
 from ccd_tpu_torch.ops.bilateral import (bilateral_filter_fused, bilateral_filter_plain,
                                          kernel_attributes as bilateral_attributes)
 from ccd_tpu_torch.ops.kmeans_mask import kmeans_foreground_mask
+import ccd_tpu_torch.ops.layer_norm as layer_norm_mod
+from ccd_tpu_torch.ops.layer_norm import (check_kernel_inputs as check_layer_norm_inputs,
+                                          kernel_attributes as layer_norm_attributes,
+                                          layer_norm, layer_norm_plain)
+from ccd_tpu_torch.models.nrtr import NRTRDecoder
 from ccd_tpu_torch.parallel.mesh import (collective_counts, collective_counts_by_group,
                                          init_distributed, pretrain_mesh,
                                          reset_collective_counts)
@@ -176,7 +185,8 @@ from ccd_tpu_torch.training.pretrain_step import (SHARDED_PARAMETERS, PretrainSt
                                                   init_pretrain_state, make_fused_pretrain_step,
                                                   pretrain_state_payload, shard_pretrain_state)
 
-KERNEL_LIBRARIES = ("packed_attention", "packed_attention_bwd", "fused_dino_ce", "bilateral")
+KERNEL_LIBRARIES = ("packed_attention", "packed_attention_bwd", "fused_dino_ce", "bilateral",
+                    "layer_norm")
 
 # published peaks of one H100 SXM (dense): device memory and tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -200,10 +210,16 @@ VIT_BASE_CONFIG = os.path.join(PKG_DIR, "configs", "ccd_pretrain_vit_base.yaml")
 VIT_BASE_BATCH = 48                    # -> 2B = 96 images, 2496 rows of 65536
 VIT_BASE_STEPS = 4                     # the compared step and three timed ones
 CHAIN_SEVERITIES = (1, 2, 3, 4, 6)     # pretrain_views at these, beside severity 5
+# LayerNorms of a 12-block ViT: two a block and the final one; the pretraining
+# student adds its three seg taps (the teacher and the recognizer compute none),
+# and the NRTR decoder has three a layer and a final one, 19 a pass of 6 layers
+VIT_NORMS, SEG_TAPS, DECODER_NORMS = 2 * 12 + 1, 3, 3 * 6 + 1
 LAUNCHES_PER_STEP = {"K1-fwd": 24, "K1-bwd": 12, "K1b-fwd": 0, "K1b-bwd": 0, "K2-fwd": 1,
-                     "K2-bwd": 1, "K3": 2}
+                     "K2-bwd": 1, "K3": 2, "LN-fwd": 2 * VIT_NORMS + SEG_TAPS,
+                     "LN-bwd": VIT_NORMS + SEG_TAPS}
 # remat: each of the student's 12 blocks runs its forward again in the backward
-LAUNCHES_PER_STEP_REMAT = dict(LAUNCHES_PER_STEP, **{"K1-fwd": 36})
+LAUNCHES_PER_STEP_REMAT = dict(LAUNCHES_PER_STEP, **{"K1-fwd": 36,
+                                                     "LN-fwd": 2 * VIT_NORMS + SEG_TAPS + 24})
 OPT_TIMED_STEPS = 3                    # sgd and lars: timed steps after the compared one
 REMAT_TIMED_STEPS = 3                  # timed steps with and without remat after the first
 # the convergence demo on the card, cut to a few hundred iterations a phase
@@ -217,7 +233,8 @@ STEP_PHASES = ("augment", "student_encode", "segment", "label_clusters", "warp",
                "pool_head", "seg_loss", "dino_ce", "backward", "update")
 # the finetune step: 12 ViT blocks forward through K1-fwd and backward through K1-bwd
 FT_LAUNCHES_PER_STEP = {"K1-fwd": 12, "K1-bwd": 12, "K1b-fwd": 0, "K1b-bwd": 0, "K2-fwd": 0,
-                        "K2-bwd": 0, "K3": 0}
+                        "K2-bwd": 0, "K3": 0, "LN-fwd": VIT_NORMS + DECODER_NORMS,
+                        "LN-bwd": VIT_NORMS + DECODER_NORMS}
 FT_STEPS = 6                           # timed finetune steps after the compared one
 FT_PHASES = ("augment", "forward", "tf_loss", "backward", "update")
 # finetune CLI: 1152 words = 4 iterations an epoch at batch 288, 35 epochs;
@@ -395,6 +412,41 @@ BILATERAL_FP32_PER_TAP = 11
 # the former count, 25 fp32 operations a tap (expf's helper instructions
 # included) over the 67 TFLOP/s FMA peak, reported beside the new bound
 BILATERAL_FORMER_OPS_PER_TAP = 25
+# LayerNorm kernels against the plain chain (layer_norm_plain and its
+# autograd), the same fp32 arithmetic summed in another order (a warp's
+# butterfly against ATen's Welford; the parameters' gradients over up to 262k
+# rows in blocks) and rsqrtf (2 ulp):
+# * y in bf16: both sides round an fp32 value to bf16; where the two fp32
+#   values straddle a rounding boundary they part by one bf16 ulp. Below
+#   |y| = 2^-10 the fp32 difference of the row's mean (~1e-7 of the row's
+#   scale) may pass a bf16 ulp of the value itself, so the ulp is taken at
+#   2^-10 at the least. fp32 y, the saved mean (relative to the row's
+#   largest |x|) and rstd: TOL_LN_REL.
+# * dx = rstd (g - mean(g) - xh mean(g xh)): three fp32 terms whose
+#   difference cancels; the fp32 error is ~1e-6 of the largest term, held at
+#   TOL_LN_REL of the tensor's largest |dx|, plus one bf16 ulp of the value
+#   where dx is bf16.
+# * dw, db: sums over the rows in another order; each column within
+#   TOL_LN_SUM_REL of the sum of its terms' magnitudes (sum |dy xh|, sum
+#   |dy|): a recursive sum's error is a few ulp of that per term added in
+#   sequence (~1e-6 here); a block's rows left out or counted twice moves a
+#   column by ~1e-4 of it at the shapes below.
+TOL_LN_REL, TOL_LN_SUM_REL, LN_ULP_FLOOR = 1e-5, 1e-5, 2.0 ** -10
+LN_FLOPS_FWD, LN_FLOPS_BWD = 8, 14       # fp32 operations an element, each direction
+# (rows, C, type, output type, eps, what): the main paths' norms
+LN_SHAPES = (
+    (1024 * 256, 384, torch.bfloat16, torch.bfloat16, 1e-6, "ViT-Small, recognition batch 1024"),
+    (512 * 256, 384, torch.bfloat16, torch.bfloat16, 1e-6, "ViT-Small pretraining, 2 x 256"),
+    (288 * 256, 384, torch.bfloat16, torch.bfloat16, 1e-6, "ViT-Small, batch 288"),
+    (1024, 512, torch.bfloat16, torch.bfloat16, 1e-5, "NRTR greedy step, batch 1024"),
+    (288 * 25, 512, torch.bfloat16, torch.bfloat16, 1e-5, "NRTR teacher-forced, batch 288"),
+    (96 * 256, 512, torch.bfloat16, torch.bfloat16, 1e-6, "ViT-Base pretraining, 2 x 48"),
+    (128 * 256, 192, torch.float32, torch.float32, 1e-6, "ViT-Tiny fp32 step, 2 x 64"),
+    (32 * 256, 64, torch.float32, torch.float32, 1e-6, "vit_micro fp32 probe, 32"))
+# every pairing of types and every count of loads a lane a row (C up to 1024)
+LN_COVERAGE = ((37, 8, torch.bfloat16, torch.float32), (33, 1024, torch.float32, torch.bfloat16),
+               (5, 200, torch.bfloat16, torch.bfloat16), (129, 776, torch.float32, torch.float32),
+               (3, 1016, torch.bfloat16, torch.float32), (1, 520, torch.float32, torch.bfloat16))
 
 
 STARTED = time.time()
@@ -1009,6 +1061,191 @@ def check_bilateral(shape, gen, max_radius=5, rad2=None):
             "former_ops_per_tap": BILATERAL_FORMER_OPS_PER_TAP}
 
 
+def layer_norm_bytes(rows: int, c: int, dtype, out_dtype, backward: bool) -> int:
+    """Bytes one LayerNorm must move: forward x read and y written, the
+    weight and bias read; backward x and dy read and dx written, the weight
+    read and its and the bias's gradients written (the saved fp32
+    statistics, 8 bytes a row, are the kernels' own)."""
+    e, eo = torch.empty((), dtype=dtype).element_size(), \
+        torch.empty((), dtype=out_dtype).element_size()
+    n = rows * c
+    return n * (2 * e + eo) + 3 * c * 4 if backward else n * (e + eo) + 2 * c * 4
+
+
+def layer_norm_bound(rows: int, c: int, dtype, out_dtype, backward: bool):
+    """(least time in ms, what bounds it) for one LayerNorm's own work: its
+    bytes (:func:`layer_norm_bytes`) against LN_FLOPS_FWD (LN_FLOPS_BWD) fp32
+    operations an element."""
+    return roofline(layer_norm_bytes(rows, c, dtype, out_dtype, backward),
+                    (LN_FLOPS_BWD if backward else LN_FLOPS_FWD) * rows * c, torch.float32)
+
+
+def queued_device_ms(fn, reps: int = 20, spin_cycles: int = 50_000_000,
+                     attempts: int = 4) -> float:
+    """Device time per call of ``fn`` from CUDA events around ``reps`` calls
+    queued behind a spin kernel: the host issues every call while the card
+    spins, so the card runs them back to back and the events time the card's
+    work (the gaps between its launches included), not the host's issue.
+    Every launch is inside the events, where the profiler's device trace
+    now and then drops a kernel's record. Taken again with a spin four times
+    as long where the host's issue outlasted the spin."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        spun, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spun.record()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if issue_ms < spun.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        spin_cycles *= 4
+    raise SystemExit(f"the host's issue of {reps} calls outlasted a spin of "
+                     f"{spin_cycles // 4} cycles in {attempts} attempts")
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each |v| (of LN_ULP_FLOOR at the least)."""
+    return torch.exp2(torch.floor(torch.log2(v.float().abs().clamp_min(LN_ULP_FLOOR))) - 7)
+
+
+def check_layer_norm(rows: int, c: int, dtype, out_dtype, eps: float, gen, what: str = "",
+                     timed: bool = True):
+    """The LayerNorm kernels against the plain chain on the card, forward and
+    backward, at (rows, C): rows of mixed scale and offset, the weight near 1
+    and the bias near 0. Returns (forward entry, backward entry); timed, each
+    with the kernel's device time, its bound, the plain chain's device time
+    and one ATen call's (``F.layer_norm`` with the parameters in x's type,
+    and its autograd) as the yardstick."""
+    name = f"layer_norm ({rows}, {c}) {dtype} -> {out_dtype}"
+    x = (torch.randn((rows, c), device="cuda", generator=gen)
+         * (0.5 + 2.5 * torch.rand((rows, 1), device="cuda", generator=gen))
+         + torch.randn((rows, 1), device="cuda", generator=gen)).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    dy = torch.randn((rows, c), device="cuda", generator=gen).to(out_dtype)
+    check_layer_norm_inputs(x, w, b, out_dtype)
+    forward = lambda: layer_norm_mod._forward(x, w, b, eps, out_dtype, save=True)
+    backward = lambda: layer_norm_mod._backward(x, dy, w, stats)
+    y, stats = forward()
+    mean, rstd = stats
+    dx, grads = backward()
+    again_dx, again_grads = backward()
+    torch.cuda.synchronize()
+    deterministic = torch.equal(dx, again_dx) and torch.equal(grads, again_grads)
+    dw, db = grads
+
+    xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    y_p = layer_norm_plain(xr, wr, br, eps, out_dtype)
+    dx_p, dw_p, db_p = torch.autograd.grad(y_p, (xr, wr, br), dy, retain_graph=True)
+    xf = x.float()
+    mean_p = xf.mean(-1)
+    rstd_p = torch.rsqrt(((xf - mean_p[:, None]) ** 2).mean(-1) + eps)
+    xh = (xf - mean_p[:, None]) * rstd_p[:, None]
+
+    want = y_p.detach()
+    if out_dtype == torch.bfloat16:
+        y_err = float(((y.float() - want.float()).abs() / bf16_ulp(want)).max())
+        y_ok = y_err <= 1.0
+    else:
+        y_err = float((y - want).abs().max() / want.abs().max())
+        y_ok = y_err <= TOL_LN_REL
+    mean_err = float(((mean - mean_p).abs() / xf.abs().amax(-1)).max())
+    rstd_err = float(((rstd - rstd_p).abs() / rstd_p).max())
+    dx_scale = float(dx_p.float().abs().max())
+    dx_diff = (dx.float() - dx_p.float()).abs()
+    if dtype == torch.bfloat16:
+        dx_ok = bool((dx_diff <= bf16_ulp(dx_p) + TOL_LN_REL * dx_scale).all())
+    else:
+        dx_ok = float(dx_diff.max()) <= TOL_LN_REL * dx_scale
+    dx_err = float(dx_diff.max()) / dx_scale
+    dy_f = dy.float()
+    dw_err = float(((dw - dw_p).abs() / (dy_f * xh).abs().sum(0)).max())
+    db_err = float(((db - db_p).abs() / dy_f.abs().sum(0)).max())
+    errors = {"y": y_err, "mean": mean_err, "rstd": rstd_err, "dx": dx_err, "dw": dw_err,
+              "db": db_err}
+    if not (y_ok and dx_ok and mean_err <= TOL_LN_REL and rstd_err <= TOL_LN_REL
+            and dw_err <= TOL_LN_SUM_REL and db_err <= TOL_LN_SUM_REL and deterministic) \
+            or y.dtype != out_dtype or dx.dtype != dtype:
+        raise SystemExit(f"{name}: kernel against plain {errors} (y in bf16 ulps where bf16), "
+                         f"types {y.dtype} {dx.dtype}, backward twice equal: {deterministic}")
+    common = {"shape": [rows, c], "dtype": str(dtype).replace("torch.", ""),
+              "out_dtype": str(out_dtype).replace("torch.", ""), "eps": eps, "what": what}
+    fwd = dict(common, max_abs_err=y_err,
+               tol="1 bf16 ulp" if out_dtype == torch.bfloat16 else TOL_LN_REL,
+               mean_rel_err=mean_err, rstd_rel_err=rstd_err)
+    bwd = dict(common, max_abs_err=dx_err, tol=TOL_LN_REL, dw_rel_err=dw_err, db_rel_err=db_err,
+               tol_sums=TOL_LN_SUM_REL, bit_equal_twice=deterministic)
+    if not timed:
+        return fwd, bwd
+    lib_w, lib_b = w.to(dtype), b.to(dtype)
+    xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, lib_w, lib_b))
+    y_l = F.layer_norm(xl, (c,), wl, bl, eps)
+    l2_bytes = getattr(torch.cuda.get_device_properties(x.device), "L2_cache_size", 50 << 20)
+    for entry, backward_pass, kernel, plain, library in (
+            (fwd, False, lambda: layer_norm_mod._forward(x, w, b, eps, out_dtype, save=False),
+             lambda: layer_norm_plain(x, w, b, eps, out_dtype),
+             lambda: F.layer_norm(x, (c,), lib_w, lib_b, eps)),
+            (bwd, True, backward,
+             lambda: torch.autograd.grad(y_p, (xr, wr, br), dy, retain_graph=True),
+             lambda: torch.autograd.grad(y_l, (xl, wl, bl), dy.to(dtype), retain_graph=True))):
+        device_ms = queued_device_ms(kernel)
+        bound_ms, bound_by = layer_norm_bound(rows, c, dtype, out_dtype, backward_pass)
+        # operands the L2 cannot hold come from HBM at every call: a time
+        # under their bound is a fault of the timing, not a fast kernel
+        from_hbm = layer_norm_bytes(rows, c, dtype, out_dtype, backward_pass) > 2 * l2_bytes
+        if from_hbm and device_ms < bound_ms:
+            raise SystemExit(f"{name}: {'backward' if backward_pass else 'forward'} timed at "
+                             f"{device_ms} ms, under its bound {bound_ms} ms")
+        entry.update(kernel_ms=device_ms, device_ms=device_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, bound_over_device_ms=bound_ms / device_ms,
+                     operands_exceed_l2=from_hbm,
+                     plain_ms=queued_device_ms(plain), library_ms=queued_device_ms(library),
+                     wrapper_call_ms=time_ms(kernel),
+                     timing="CUDA events around 20 calls queued behind a spin kernel")
+    return fwd, bwd
+
+
+def layer_norm_checks(gen) -> dict:
+    """Every LN_SHAPES case timed, every LN_COVERAGE case checked, the
+    kernels' resources and what the wrapper refuses."""
+    main = [check_layer_norm(rows, c, dt, odt, eps, gen, what)
+            for rows, c, dt, odt, eps, what in LN_SHAPES]
+    coverage = [check_layer_norm(rows, c, dt, odt, 1e-5, gen, "coverage", timed=False)
+                for rows, c, dt, odt in LN_COVERAGE]
+    zeros = lambda *shape, dtype=torch.bfloat16: torch.zeros(shape, device="cuda", dtype=dtype)
+    w = zeros(64, dtype=torch.float32)
+    refused = count_refusals("layer norm", [
+        lambda: layer_norm(zeros(4, 64, dtype=torch.float16), w, w, 1e-6, torch.bfloat16),
+        lambda: layer_norm(zeros(4, 64), w, w, 1e-6, torch.float16),
+        lambda: layer_norm(zeros(4, 100), zeros(100, dtype=torch.float32),
+                           zeros(100, dtype=torch.float32), 1e-6, torch.bfloat16),
+        lambda: layer_norm(zeros(4, 1032), zeros(1032, dtype=torch.float32),
+                           zeros(1032, dtype=torch.float32), 1e-6, torch.bfloat16),
+        lambda: layer_norm(zeros(64, 64).t(), w, w, 1e-6, torch.bfloat16),
+        lambda: layer_norm(zeros(4, 64), w.bfloat16(), w, 1e-6, torch.bfloat16)])
+    resources = [dict(c=c, dtype=str(dt).replace("torch.", ""), backward=bwd,
+                      **layer_norm_attributes(c, dt, dt, backward=bwd))
+                 for c, dt in ((384, torch.bfloat16), (512, torch.bfloat16),
+                               (192, torch.float32), (64, torch.float32), (1024, torch.float32))
+                 for bwd in (False, True)]
+    return {"forward": [m[0] for m in main] + [c[0] for c in coverage],
+            "backward": [m[1] for m in main] + [c[1] for c in coverage],
+            "refused": refused, "resources": resources}
+
+
+def layer_norm_phase(card: str) -> dict:
+    """The LayerNorm kernels' checks alone, as one line."""
+    checks = layer_norm_checks(torch.Generator(device="cuda").manual_seed(SEED + 31))
+    emit(dict({"phase": "layer_norm_checks", "gpu": card}, **checks))
+    return checks
+
+
 def count_refusals(what, calls, expected=(ValueError, TypeError, RuntimeError)):
     """What a kernel does not take is refused, not computed some other way."""
     refused = 0
@@ -1185,9 +1422,9 @@ def decode_graph_phase(card: str) -> dict:
     return result
 
 
-def evaluation_path(card: str) -> int:
-    """The recognizer's evaluation at full width; returns the forward
-    kernel's launches on it."""
+def evaluation_path(card: str) -> dict:
+    """The recognizer's evaluation at full width; returns the attention's
+    and the LayerNorm's forward launches on it."""
     config = Config(CONFIG)
     model, _ = build_recognizer(config, device="cuda",
                                 generator=torch.Generator().manual_seed(SEED))
@@ -1206,17 +1443,27 @@ def evaluation_path(card: str) -> int:
         evaluate()  # warm-up: library handles, allocator, cast weights
         torch.cuda.synchronize()
 
-        mha_packed_bias.launches = 0
-        t0 = time.time()
-        results, weighted = evaluate()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        mha_packed_bias.launches = layer_norm.launches = layer_norm.bwd_launches = 0
+        with decoder_runs() as passes:
+            t0 = time.time()
+            results, weighted = evaluate()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
         launches = mha_packed_bias.launches
 
         n_batches = sum(-(-n // BATCH) for n in (N_FULL, N_RAGGED))
         if launches != 12 * n_batches:
             raise SystemExit(f"main path: {launches} kernel launches, expected "
                              f"{12 * n_batches} (12 per batch, {n_batches} batches)")
+        # the ViT's norms every batch; the decoder's on the host only where its
+        # pass runs there (a replay launches its graph's norms on the card alone)
+        vit_norms, dec_norms = recognizer_norms(model)
+        norms = {"LN-fwd": layer_norm.launches, "LN-bwd": layer_norm.bwd_launches,
+                 "decoder_passes_on_the_host": passes[0]}
+        if norms["LN-fwd"] != vit_norms * n_batches \
+                + dec_norms * model.decoder.max_seq_len * passes[0] or norms["LN-bwd"]:
+            raise SystemExit(f"main path: LayerNorm launches {norms}, expected {vit_norms} a "
+                             f"batch and {dec_norms} a decode step run on the host")
         words = [int(r["words"]) for r in results]
         if words != [N_FULL, N_RAGGED] or not all(
                 np.isfinite(r[k]) for r in results for k in ("cwr", "ccr", "ned")):
@@ -1266,9 +1513,9 @@ def evaluation_path(card: str) -> int:
             batch_size=BATCH, shuffle=False, drop_last=False, num_workers=4)))[0]).cuda()
         with torch.no_grad():
             x = normalise(images)
-            tokens, _ = model.backbone(x)
+            tokens = model.extract_feat(x)
             enc = model.encoder(tokens)
-            split = {"vit_ms": time_ms(lambda: model.backbone(x), reps=5, warmup=1),
+            split = {"vit_ms": time_ms(lambda: model.extract_feat(x), reps=5, warmup=1),
                      "encoder_ms": time_ms(lambda: model.encoder(tokens), reps=5, warmup=1),
                      "decode_ms": time_ms(lambda: model.decoder.decode_greedy(enc), reps=5,
                                           warmup=1),
@@ -1284,13 +1531,14 @@ def evaluation_path(card: str) -> int:
     emit({"phase": "main_path", "path": "evaluation", "gpu": card, "config": "ccd_finetune_ard.yaml",
           "arch": "vit_small + 6-layer NRTR", "dtype": "bfloat16", "batch": BATCH,
           "images": N_FULL + N_RAGGED, "batches": n_batches, "kernel_launches": launches,
+          "layer_norm_launches": norms,
           "images_per_s_inference": (N_FULL + N_RAGGED) / infer_s,
           "images_per_s_with_loading": (N_FULL + N_RAGGED) / wall,
           **split, "max_abs_prob_diff_vs_plain": worst, "tol_probs": TOL_PROBS,
           "token_agreement_vs_plain": share, "min_token_agreement": MIN_TOKEN_AGREEMENT,
           "total_accuracy": weighted})
 
-    return launches
+    return {"K1-fwd": launches, "LN-fwd": norms["LN-fwd"]}
 
 
 class PlainAttention(torch.autograd.Function):
@@ -1312,19 +1560,20 @@ class PlainAttention(torch.autograd.Function):
 
 @contextlib.contextmanager
 def plain_versions_in_place_of_kernels():
-    """Inside, the ViT's attention, the fused CE and the augmentation's
-    bilateral filter go through their plain versions: done here by the
-    script, the package has no switch."""
+    """Inside, the ViT's attention, the fused CE, the augmentation's
+    bilateral filter and every LayerNorm go through their plain versions:
+    done here by the script, the package has no switch."""
     saved = (vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce,
-             aug_ops_mod.bilateral_filter_fused)
+             aug_ops_mod.bilateral_filter_fused, layers_mod.layer_norm)
     vit_mod.mha_packed_bias = PlainAttention.apply
     losses_mod.fused_dino_row_ce = fused_dino_row_ce_plain
     aug_ops_mod.bilateral_filter_fused = bilateral_filter_plain
+    layers_mod.layer_norm = layer_norm_plain
     try:
         yield
     finally:
         (vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce,
-         aug_ops_mod.bilateral_filter_fused) = saved
+         aug_ops_mod.bilateral_filter_fused, layers_mod.layer_norm) = saved
 
 
 class PhaseEvents:
@@ -1350,7 +1599,8 @@ def kernel_counts():
     return {"K1-fwd": mha_packed_bias.launches, "K1-bwd": mha_packed_bias_bwd.launches,
             "K1b-fwd": flash_attention.launches, "K1b-bwd": flash_attention_bwd.launches,
             "K2-fwd": fused_dino_row_ce.launches, "K2-bwd": fused_dino_row_ce.bwd_launches,
-            "K3": bilateral_filter_fused.launches}
+            "K3": bilateral_filter_fused.launches, "LN-fwd": layer_norm.launches,
+            "LN-bwd": layer_norm.bwd_launches}
 
 
 def reset_kernel_counts() -> None:
@@ -1358,6 +1608,31 @@ def reset_kernel_counts() -> None:
     flash_attention.launches = flash_attention_bwd.launches = mha.launches = 0
     fused_dino_row_ce.launches = fused_dino_row_ce.bwd_launches = 0
     bilateral_filter_fused.launches = 0
+    layer_norm.launches = layer_norm.bwd_launches = 0
+
+
+def recognizer_norms(model) -> tuple:
+    """(LayerNorms of one ViT forward without the taps, of one decoder pass)."""
+    return 2 * len(model.backbone.blocks) + 1, 3 * len(model.decoder.layer_stack) + 1
+
+
+@contextlib.contextmanager
+def decoder_runs():
+    """Counts the greedy decode's passes over its steps that run on the host,
+    each launching the decoder's norms once a step: an eager decode runs one,
+    a capture two (its warm-up and the captured run), a replay none."""
+    passes = [0]
+    inner = NRTRDecoder._decode_steps
+
+    def counted(self, out_enc):
+        passes[0] += 1
+        return inner(self, out_enc)
+
+    NRTRDecoder._decode_steps = counted
+    try:
+        yield passes
+    finally:
+        NRTRDecoder._decode_steps = inner
 
 
 def pretrain_inputs(batch: int, seed: int):
@@ -2741,7 +3016,7 @@ def last_selfattention_phase(card: str) -> int:
     sum to 1 within TOL_ROW_SUM_BF16, equal to the last block's attention
     written out here (the other blocks through the plain versions) within
     TOL_LAST_ATTN; the first 11
-    blocks launch K1-fwd. Returns its launches."""
+    blocks launch K1-fwd. Returns the kernels' launches."""
     config = Config(CONFIG)
     model, _ = build_recognizer(config, device="cuda",
                                 generator=torch.Generator().manual_seed(SEED))
@@ -2766,6 +3041,7 @@ def last_selfattention_phase(card: str) -> int:
     sum_err = float((row_sums - 1).abs().max())
     want = dict.fromkeys(LAUNCHES_PER_STEP, 0)
     want["K1-fwd"] = len(vit.blocks) - 1
+    want["LN-fwd"] = 2 * len(vit.blocks)  # the last block's second norm runs too, no final one
     emit({"phase": "main_path", "path": "last_selfattention", "gpu": card,
           "config": "ccd_finetune_ard.yaml backbone", "batch": BATCH,
           "shape": list(attn.shape), "dtype": str(attn.dtype).replace("torch.", ""),
@@ -2776,7 +3052,7 @@ def last_selfattention_phase(card: str) -> int:
             or not sum_err <= TOL_ROW_SUM_BF16 or launches != want:
         raise SystemExit(f"last_selfattention: shape {tuple(attn.shape)}, error {err}, row "
                          f"sums off by {sum_err}, launches {launches} (expected {want})")
-    return launches["K1-fwd"]
+    return launches
 
 
 def convergence_short_phase(card: str) -> None:
@@ -3106,14 +3382,18 @@ def overfit_probe_phase(card: str) -> dict:
                                       ("full_width", ["-c", CONFIG], 12, torch.bfloat16)):
         reset_kernel_counts()
         buffer = io.StringIO()
-        with contextlib.redirect_stdout(buffer):
+        with contextlib.redirect_stdout(buffer), decoder_runs() as passes:
             result = overfit_probe.main(argv + ["--n", str(PROBE_WORDS),
                                                 "--steps", str(PROBE_STEPS)])
         launches = kernel_counts()
         launches_total.update(launches)
         model, losses = result["model"], result["losses"]
+        vit_norms, dec_norms = recognizer_norms(model)
         want = dict.fromkeys(launches, 0)
-        want.update({"K1-fwd": blocks * (PROBE_STEPS + 1), "K1-bwd": blocks * PROBE_STEPS})
+        want.update({"K1-fwd": blocks * (PROBE_STEPS + 1), "K1-bwd": blocks * PROBE_STEPS,
+                     "LN-fwd": (vit_norms + dec_norms) * PROBE_STEPS + vit_norms
+                     + dec_norms * model.decoder.max_seq_len * passes[0],
+                     "LN-bwd": (vit_norms + dec_norms) * PROBE_STEPS})
         if model.dtype != dtype or len(model.backbone.blocks) != blocks or launches != want:
             raise SystemExit(f"overfit_probe {name}: not the expected model ({model.dtype}, "
                              f"{len(model.backbone.blocks)} blocks) or launches {launches} "
@@ -3260,7 +3540,7 @@ def parity_eval_phase(card: str, probe: dict, pth: str) -> int:
     probe's model. Gates: exit 0, the weighted accuracy equal to the direct
     one, the strings read equal image by image, 12 forward attention
     launches a batch, and exit 1 with the baseline moved by PARITY_MOVED
-    points. Returns the harness run's forward launches."""
+    points. Returns the harness run's kernels' launches."""
     import io
     model = probe["result"]["model"]
     config = Config(CONFIG)
@@ -3305,13 +3585,16 @@ def parity_eval_phase(card: str, probe: dict, pth: str) -> int:
         artifact_path = os.path.join(tmp, "parity.json")
         reset_kernel_counts()
         t0 = time.time()
-        code, returned, log = harness(files["baseline"], texts, seconds, artifact_path)
+        with decoder_runs() as passes:
+            code, returned, log = harness(files["baseline"], texts, seconds, artifact_path)
         wall = time.time() - t0
         launches = kernel_counts()
         n_images = PROBE_WORDS + PARITY_OTHER_WORDS
         n_batches = -(-PROBE_WORDS // BATCH) + -(-PARITY_OTHER_WORDS // BATCH)
+        vit_norms, dec_norms = recognizer_norms(model)
         want = dict.fromkeys(launches, 0)
         want["K1-fwd"] = 12 * n_batches
+        want["LN-fwd"] = vit_norms * n_batches + dec_norms * model.decoder.max_seq_len * passes[0]
         if code != 0 or returned is None or "PARITY OK" not in log:
             raise SystemExit(f"parity_eval: exit {code} on its own baseline:\n{log[-3000:]}")
         rows, weighted, _ok = returned
@@ -3334,11 +3617,12 @@ def parity_eval_phase(card: str, probe: dict, pth: str) -> int:
           "weighted_acc": weighted, "direct_weighted_acc": direct, "bit_identical": True,
           "strings_equal": len(texts), "exit_code": code, "moved_baseline_exit_code": moved_code,
           "moved_by_pct": PARITY_MOVED, "artifact_device": artifact["device"],
-          "kernel_launches": {"K1-fwd": launches["K1-fwd"]}, "batches": n_batches,
+          "kernel_launches": {"K1-fwd": launches["K1-fwd"], "LN-fwd": launches["LN-fwd"]},
+          "batches": n_batches, "decoder_passes_on_the_host": passes[0],
           "images_per_s_inference": n_images / sum(seconds),
           "images_per_s_direct_inference": n_images / sum(direct_s),
           "harness_wall_s": wall, "images_per_s_harness_wall": n_images / wall})
-    return launches["K1-fwd"]
+    return launches
 
 
 def kmeans_centroids_float64(gray: np.ndarray, iters: int = 16):
@@ -3534,8 +3818,9 @@ def parse_args(argv):
                     "named by --only.")
     parser.add_argument("--only", action="append", choices=ONLY_PHASES,
                         help="run only this phase after the build (repeatable): the fp32 "
-                             "attention cases of the kernels phase, the fp32 ViT-Tiny step, or "
-                             "the greedy decode's CUDA graphs against the eager decode")
+                             "attention cases of the kernels phase, the fp32 ViT-Tiny step, "
+                             "the greedy decode's CUDA graphs against the eager decode, or the "
+                             "LayerNorm kernels' checks and times")
     parser.add_argument("--kernels-from", metavar="DIR",
                         help="with --only: run each phase also with the attention kernels "
                              "built from DIR/ccd_tpu_torch/csrc (a checkout of another commit, "
@@ -3547,7 +3832,7 @@ def parse_args(argv):
     return args
 
 
-ONLY_PHASES = ("attention_fp32", "fp32_step", "decode_graph")
+ONLY_PHASES = ("attention_fp32", "fp32_step", "decode_graph", "layer_norm")
 
 
 def only_phases(card: str, phases, other) -> None:
@@ -3566,8 +3851,10 @@ def only_phases(card: str, phases, other) -> None:
             run(phase, other)
 
     for phase in phases:
-        if phase == "decode_graph":  # no attention kernel: the decoder is plain torch
+        if phase == "decode_graph":  # no attention kernel in the decoder
             decode_graph_phase(card)
+        elif phase == "layer_norm":
+            layer_norm_phase(card)
         elif other is None:
             run(phase, "this tree")
         elif phase == "attention_fp32":
@@ -3652,6 +3939,7 @@ def main(argv=()) -> None:
     ce += [check_fused_ce(2 * 7 * 26, k, dtype, swap, gen)   # K = 1001: the scalar path
            for k in (1000, 1001) for dtype in (bf16, f32) for swap in (True, False)]
     ce.append(check_fused_ce(7, 100, f32, False, gen))       # odd rows without swap_halves
+    norms = layer_norm_checks(gen)
     ce_fwd, ce_bwd = [c[0] for c in ce], [c[1] for c in ce]
     bil = [check_bilateral((PRETRAIN_BATCH, 32, 128, 3), gen),
            check_bilateral((VIT_BASE_BATCH, 32, 128, 3), gen),          # ViT-Base's batch
@@ -3696,7 +3984,9 @@ def main(argv=()) -> None:
           "forward_lse": lse_forward,
           "passed": {"K1-fwd": len(fwd), "K1-bwd": len(bwd), "K1b-fwd": len(flash_fwd),
                      "K1b-bwd": len(flash_bwd), "K2-fwd": len(ce_fwd), "K2-bwd": len(ce_bwd),
-                     "K3": len(bil)}})  # numbers: the kernels line
+                     "K3": len(bil), "LN-fwd": len(norms["forward"]),
+                     "LN-bwd": len(norms["backward"])},
+          "refused_unsupported_layer_norm": norms["refused"]})  # numbers: the kernels line
 
     # ---- the main paths, launch counts set to 0 just before each and read just after
     reset_kernel_counts()
@@ -3747,10 +4037,18 @@ def main(argv=()) -> None:
                "finetune_abinet": abinet_launches, "fp32_step": fp32_launches,
                "pretrain_sgd_lars": opt_launches,
                "pretrain_remat": remat_launches, **dp_launches, **tp_launches}
-    k1_fwd = {"evaluation": eval_launches, "calibrate": calib_launches["K1-fwd"],
-              "last_selfattention": attention_launches,
+    k1_fwd = {"evaluation": eval_launches["K1-fwd"], "calibrate": calib_launches["K1-fwd"],
+              "last_selfattention": attention_launches["K1-fwd"],
               **{path: n["K1-fwd"] for path, n in by_path.items()},
-              "overfit_probe": probe["launches"]["K1-fwd"], "parity_eval": parity_launches}
+              "overfit_probe": probe["launches"]["K1-fwd"],
+              "parity_eval": parity_launches["K1-fwd"]}
+    ln_fwd = {"evaluation": eval_launches["LN-fwd"],
+              "last_selfattention": attention_launches["LN-fwd"],
+              **{path: n["LN-fwd"] for path, n in by_path.items()},
+              "overfit_probe": probe["launches"]["LN-fwd"],
+              "parity_eval": parity_launches["LN-fwd"]}
+    ln_bwd = {**{path: n["LN-bwd"] for path, n in by_path.items()},
+              "overfit_probe": probe["launches"]["LN-bwd"]}
     k1_bwd = {**{path: n["K1-bwd"] for path, n in by_path.items()},
               "overfit_probe": probe["launches"]["K1-bwd"]}
     k2_fwd, k2_bwd, k3 = ({path: n[k] for path, n in by_path.items() if n[k]}
@@ -3799,7 +4097,15 @@ def main(argv=()) -> None:
                      resources=bilateral_resources(),
                      # max radius 5: 81 taps for each of a thread's 4 pixels
                      sass_max_radius_5=sass_counts("bilateral", "bilateral_kernelILi5E"),
-                     tap_evaluations_per_thread_max_radius_5=81 * 4)]})
+                     tap_evaluations_per_thread_max_radius_5=81 * 4),
+        kernel_entry("LN-fwd layer_norm_forward (layer_norm)", "ccd_tpu_torch/csrc/layer_norm.cu",
+                     "none: XLA's LayerNorm", sum(ln_fwd.values()), norms["forward"][0],
+                     norms["forward"], launches_by_path=ln_fwd,
+                     device_ms=norms["forward"][0]["device_ms"], resources=norms["resources"]),
+        kernel_entry("LN-bwd layer_norm_backward (layer_norm, backward)",
+                     "ccd_tpu_torch/csrc/layer_norm.cu", "none: XLA's LayerNorm gradient",
+                     sum(ln_bwd.values()), norms["backward"][1], norms["backward"],
+                     launches_by_path=ln_bwd, device_ms=norms["backward"][1]["device_ms"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
