@@ -28,18 +28,24 @@ clusters (``dino_vision.py:72-77``).
 
 Only severity 5 reaches a hand-written kernel (the bilateral filter of its
 blur family); the other chains are elementwise ops, gathers and resizes.
+
+The training steps run a chain through ``graphed_augment``: on the card, a
+chain's thousands of small launches replay as one captured CUDA graph per
+input shape, drawing the numbers the eager chain draws.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Hashable, Tuple
 
 import numpy as np
 import torch
 
 from ccd_tpu_torch.data import aug_ops as A
+from ccd_tpu_torch.data.random import TorchKey
 from ccd_tpu_torch.ops.image import jax_image_resize
 from ccd_tpu_torch.ops.warp import affine_grid, grid_sample, homography_grid
+from ccd_tpu_torch.utils.cuda_graphs import GraphCache, Outputs
 from ccd_tpu_torch.utils.device import device_constant
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -555,3 +561,39 @@ def abinet_augment(key, images: torch.Tensor) -> torch.Tensor:
     mean = x.mean(dim=(1, 2, 3), keepdim=True)
     jit = torch.clamp((x * bright - mean) * contrast + mean, 0.0, 1.0)
     return _blend(x, jit, _gate(keys[11], b, 0.25))
+
+
+def _graphable(images: torch.Tensor) -> bool:
+    """Whether an augmentation may replay a graph: ``images`` on the card and
+    no capture already under way (the chain then joins it eagerly)."""
+    return images.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+
+def graphed_augment(graphs: GraphCache, generator: torch.Generator, images: torch.Tensor,
+                    chain: Callable[..., Outputs], *args) -> Outputs:
+    """``chain(TorchKey(generator), images, *args)``: through ``graphs`` where
+    :func:`_graphable` holds, eagerly anywhere else.
+
+    Through the cache a key's first call runs eagerly, its second captures
+    the chain and later calls replay it, keyed (:func:`graph_key`) by the
+    input's shape, dtype and device, the chain and its ``args`` and the
+    generator. The chain's
+    launches do not depend on its draws and it never waits for the card
+    (``aug_ops``' docstring), so the capture holds the whole chain, and its
+    tables lie outside the graphs' pool (``device_constant``). The
+    generator is registered on each graph: eager calls, captures and
+    replays draw the same numbers and leave it in the same state, as
+    ``cuda_graphs``' docstring sets out. ``graphs`` opens its span (the
+    steps name it ``augment_graph``) around each replay."""
+    def run(x: torch.Tensor) -> Outputs:
+        return chain(TorchKey(generator), x, *args)
+
+    if not _graphable(images):
+        return run(images)
+    return graphs(graph_key(generator, images, chain, args), run, images, (generator,))
+
+
+def graph_key(generator: torch.Generator, images: torch.Tensor, chain: Callable,
+              args: tuple) -> Hashable:
+    """The key of ``graphed_augment``'s graph for these arguments."""
+    return (tuple(images.shape), images.dtype, images.device, chain, args, generator)

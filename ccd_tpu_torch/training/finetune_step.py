@@ -13,7 +13,8 @@ Python iteration count, so the step reads nothing back from the device.
 ``make_finetune_step`` takes normalised images; ``make_fused_finetune_step``
 takes raw uint8 (or [0, 1] float) images and augments them on the device
 (``data/augment.py::supervised_augment``) from the state's augmentation
-generator; ``make_multi_finetune_step`` runs K fused steps over a staged
+generator, through ``graphed_augment`` (on the card one CUDA graph a batch
+shape); ``make_multi_finetune_step`` runs K fused steps over a staged
 (K, B, ...) chunk.
 
 Data parallelism (``group``, ``parallel/mesh.py``): every process holds the
@@ -32,14 +33,14 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ccd_tpu_torch.checkpoints.torch_io import generator_payload, restore_generators
-from ccd_tpu_torch.data.augment import normalize
-from ccd_tpu_torch.data.random import TorchKey
+from ccd_tpu_torch.data.augment import graphed_augment, normalize
 from ccd_tpu_torch.losses import tf_loss
 from ccd_tpu_torch.models.recognizer import CCDRecognizer
 from ccd_tpu_torch.parallel.mesh import Group, all_reduce_flat, all_reduce_sum, rank_seed
 from ccd_tpu_torch.schedules import cosine_iter_schedule
 from ccd_tpu_torch.training.optim import (AdamWState, adamw_init, adamw_updates,
                                           clip_gradients_global_norm, weight_decay_mask)
+from ccd_tpu_torch.utils.cuda_graphs import GraphCache
 from ccd_tpu_torch.utils.tracing import span
 
 
@@ -147,6 +148,10 @@ def make_finetune_step(*, base_lr: float, min_lr: float, total_iters: int, warmu
     return step
 
 
+def _augment_normalize(key, images: torch.Tensor, aug_fn: Callable) -> torch.Tensor:
+    return normalize(aug_fn(key, images))
+
+
 def make_fused_finetune_step(*, aug_fn: Optional[Callable] = None, **kwargs
                              ) -> Callable[..., Tuple[FinetuneState, Dict[str, object]]]:
     """The step on RAW images: ``step(state, images, targets)`` with images
@@ -154,8 +159,11 @@ def make_fused_finetune_step(*, aug_fn: Optional[Callable] = None, **kwargs
     augmentation ``aug_fn(key, images)`` (``supervised_augment``, or None for
     none) with draws from ``state.aug_generator``, and the ImageNet
     normalisation run on the device, then the step of
-    :func:`make_finetune_step` (built from ``kwargs``)."""
+    :func:`make_finetune_step` (built from ``kwargs``). The augmentation and
+    the normalisation go through ``graphed_augment`` together, with the
+    step's own graph cache."""
     inner = make_finetune_step(**kwargs)
+    graphs = GraphCache("augment_graph")
 
     def step(state: FinetuneState, images: torch.Tensor, targets: torch.Tensor):
         # uint8 crosses from the host (4x fewer bytes than fp32) and is
@@ -163,9 +171,11 @@ def make_fused_finetune_step(*, aug_fn: Optional[Callable] = None, **kwargs
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
         with span("augment"):
-            if aug_fn is not None:
-                images = aug_fn(TorchKey(state.aug_generator), images)
-            x = normalize(images)
+            if aug_fn is None:
+                x = normalize(images)
+            else:
+                x = graphed_augment(graphs, state.aug_generator, images, _augment_normalize,
+                                    aug_fn)
         return inner(state, x, targets)
 
     return step

@@ -16,8 +16,9 @@ step itself reads nothing back from the device (``label_clusters`` reads one
 scalar per flood round). ``make_pretrain_step`` takes the three views and
 theta; ``make_fused_pretrain_step`` takes the raw uint8 images and masks and
 draws the views on the device (``data/augment.py::pretrain_views``) from the
-state's augmentation generator; ``make_multi_pretrain_step`` runs K fused
-steps over K stacked batches.
+state's augmentation generator, through ``graphed_augment`` (on the card one
+CUDA graph a batch shape); ``make_multi_pretrain_step`` runs K fused steps
+over K stacked batches.
 
 Data parallelism (``group``, ``parallel/mesh.py``): every process holds the
 whole state and runs the step on its share of the global batch. Its losses
@@ -56,8 +57,7 @@ import numpy as np
 import torch
 
 from ccd_tpu_torch.checkpoints.torch_io import generator_payload, restore_generators
-from ccd_tpu_torch.data.augment import pretrain_views
-from ccd_tpu_torch.data.random import TorchKey
+from ccd_tpu_torch.data.augment import graphed_augment, pretrain_views
 from ccd_tpu_torch.losses import (dino_char_loss, dino_char_loss_fused,
                                   dino_center_update, seg_loss)
 from ccd_tpu_torch.models.layers import set_batchnorm_group
@@ -71,6 +71,7 @@ from ccd_tpu_torch.training.optim import (
     AdamWState, MomentumState, OptState, cancel_last_layer_grads, clip_gradients_per_param,
     ema_update, optimizer_init, optimizer_updates, weight_decay_mask,
 )
+from ccd_tpu_torch.utils.cuda_graphs import GraphCache
 from ccd_tpu_torch.utils.tracing import span
 
 _EMA_BRANCHES = ("backbone.", "head.")  # what the teacher tracks (train.py:268-272)
@@ -417,8 +418,10 @@ def make_fused_pretrain_step(*, severity: int = 5, **kwargs
     (B, H, W, 3) uint8 (or float [0,1]) and masks (B, H, W) uint8 or float.
     The conversion to float, the 3-view augmentation and theta run on the
     device, with draws from ``state.aug_generator``, then the step of
-    :func:`make_pretrain_step` (built from ``kwargs``)."""
+    :func:`make_pretrain_step` (built from ``kwargs``). The augmentation goes
+    through ``graphed_augment`` with the step's own graph cache."""
     inner = make_pretrain_step(**kwargs)
+    graphs = GraphCache("augment_graph")
 
     def step(state: PretrainState, raw: torch.Tensor, masks: torch.Tensor):
         # uint8 crosses from the host (4x fewer bytes than fp32) and is
@@ -428,7 +431,8 @@ def make_fused_pretrain_step(*, severity: int = 5, **kwargs
         if masks.dtype != torch.float32:
             masks = masks.float()
         with span("augment"):
-            views, theta = pretrain_views(TorchKey(state.aug_generator), raw, severity=severity)
+            views, theta = graphed_augment(graphs, state.aug_generator, raw, pretrain_views,
+                                           severity)
         return inner(state, views, masks, theta)
 
     return step

@@ -12,41 +12,52 @@ What a replay may rely on, and the cache keeps true:
 * it reads its input from a static tensor outside the graphs' memory pool,
   which the call fills first, and every other tensor it reads is written
   earlier in the same replay or lies outside the pool (the caller's
-  parameters, whose addresses belong in the key);
-* its output is cloned right after the replay on the same stream, so every
-  call returns a tensor of its own and no caller holds the static output.
-  That is also why all graphs of one cache may share one memory pool and
-  replay in any order: what one replay leaves in the pool, no other reads.
+  parameters, whose addresses belong in the key, and tables that are never
+  freed, as ``utils/device.py::device_constant``'s);
+* its output, a tensor or a tuple of tensors, is cloned right after the
+  replay on the same stream, so every call returns tensors of its own and no
+  caller holds the static output. That is also why all graphs of one cache
+  may share one memory pool and replay in any order: what one replay leaves
+  in the pool, no other reads;
+* it draws random numbers only from the generators the call names, which
+  are registered on its graph: a replay draws from each generator's state
+  at that moment and advances it as the eager call would, and the capture
+  draws nothing net, so eager calls, captures and replays of a key draw one
+  stream of numbers.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable, Hashable, Tuple
+from typing import Callable, Hashable, Sequence, Tuple, Union
 
 import torch
 
 from ccd_tpu_torch.utils.tracing import span
 
+Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 Replay = Callable[[], None]
-Capture = Callable[[Callable[[torch.Tensor], torch.Tensor], torch.Tensor],
-                   Tuple[Replay, torch.Tensor]]
+Capture = Callable[[Callable[[torch.Tensor], Outputs], torch.Tensor, Sequence[torch.Generator]],
+                   Tuple[Replay, Outputs]]
 
 
 class CudaGraphCapture:
-    """``capture(fn, static_in) -> (replay, static_out)``: ``fn(static_in)``
-    run once eagerly on the capture stream (cuBLAS handles and workspaces
-    are made per stream, and nothing may be made during a capture), then
-    captured as a ``torch.cuda.CUDAGraph``. Every graph of one instance
-    allocates from one memory pool. Other threads' CUDA calls do not break
-    the capture (``capture_error_mode="thread_local"``): a loader's
-    pin-memory thread may be running."""
+    """``capture(fn, static_in, generators=()) -> (replay, static_out)``:
+    ``fn(static_in)`` run once eagerly on the capture stream (cuBLAS handles
+    and workspaces are made per stream, and nothing may be made during a
+    capture), then captured as a ``torch.cuda.CUDAGraph``. Each generator
+    is registered on the graph before the capture, and its state is put
+    back after the eager run, so that neither the run nor the capture
+    leaves a draw behind. Every graph of one instance allocates from one
+    memory pool. Other threads' CUDA calls do not break the capture
+    (``capture_error_mode="thread_local"``): a loader's pin-memory thread
+    may be running."""
 
     def __init__(self):
         self._pool = None
         self._streams = {}
 
-    def __call__(self, fn, static_in: torch.Tensor):
+    def __call__(self, fn, static_in: torch.Tensor, generators: Sequence[torch.Generator] = ()):
         device = static_in.device
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -54,10 +65,15 @@ class CudaGraphCapture:
         if stream is None:
             stream = self._streams[device] = torch.cuda.Stream(device)
         graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
         with torch.cuda.device(device):
+            states = [g.get_state() for g in generators]
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
                 fn(static_in)
+            for g, state in zip(generators, states):
+                g.set_state(state)
             torch.cuda.current_stream().wait_stream(stream)
             with torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                   capture_error_mode="thread_local"):
@@ -65,17 +81,23 @@ class CudaGraphCapture:
         return graph.replay, static_out
 
 
+def _clone(out: Outputs) -> Outputs:
+    return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+
+
 class GraphCache:
-    """``cache(key, fn, x)``: ``fn(x)``, eagerly on the key's first call, from
-    a captured graph from its second on (see the module's docstring).
+    """``cache(key, fn, x, generators=())``: ``fn(x)``, eagerly on the key's
+    first call, from a captured graph from its second on (see the module's
+    docstring).
 
     ``key`` must tell apart every call that would capture another graph: the
-    input's shape, dtype and device, and the address of every tensor outside
-    the input that ``fn`` reads. It holds at most ``capacity`` graphs, and
-    remembers at most ``4 * capacity`` keys seen once, dropping the least
-    recently used. A ``span_name`` span surrounds each replay with its input
-    copy and output clone. ``capture`` is :class:`CudaGraphCapture` unless a
-    test hands in another with the same contract."""
+    input's shape, dtype and device, the address of every tensor outside
+    the input that ``fn`` reads, and every generator it draws from, which
+    the call names in ``generators``. It holds at most ``capacity`` graphs,
+    and remembers at most ``4 * capacity`` keys seen once, dropping the
+    least recently used. A ``span_name`` span surrounds each replay with its
+    input copy and output clone. ``capture`` is :class:`CudaGraphCapture`
+    unless a test hands in another with the same contract."""
 
     def __init__(self, span_name: str, capacity: int = 4, capture: Capture = None):
         if capacity < 1:
@@ -95,15 +117,15 @@ class GraphCache:
         # graphs would read the original's
         return GraphCache(self.span_name, self.capacity)
 
-    def __call__(self, key: Hashable, fn: Callable[[torch.Tensor], torch.Tensor],
-                 x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, key: Hashable, fn: Callable[[torch.Tensor], Outputs], x: torch.Tensor,
+                 generators: Sequence[torch.Generator] = ()) -> Outputs:
         entry = self._graphs.get(key)
         if entry is not None:
             self._graphs.move_to_end(key)
         elif key in self._seen:
             del self._seen[key]
             static_in = x.clone()
-            entry = (static_in,) + tuple(self.capture(fn, static_in))
+            entry = (static_in,) + tuple(self.capture(fn, static_in, tuple(generators)))
             self._graphs[key] = entry
             while len(self._graphs) > self.capacity:
                 self._graphs.popitem(last=False)
@@ -116,4 +138,4 @@ class GraphCache:
         with span(self.span_name):
             static_in.copy_(x)
             replay()
-            return static_out.clone()
+            return _clone(static_out)

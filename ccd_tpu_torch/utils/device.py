@@ -20,12 +20,14 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
-@lru_cache(maxsize=256)
+@lru_cache(maxsize=None)
 def device_constant(make: Callable, device: torch.device, *args):
     """``make(*args)`` — a numpy array, or a tuple of them — as tensors on
     ``device``, made and copied there once per (make, device, args). A copy
     from host memory waits for the device, so code inside a step keeps its
-    constants here rather than uploading them at each call."""
+    constants here rather than uploading them at each call. None is ever
+    dropped: a captured CUDA graph reads them at their addresses for as long
+    as it lives (``utils/cuda_graphs.py``)."""
     value = make(*args)
     if isinstance(value, tuple):
         return tuple(torch.as_tensor(v, device=device) for v in value)

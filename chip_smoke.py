@@ -16,8 +16,14 @@ shipped configurations, with random weights from a seed:
     batches of 1024 and a ragged 1000, three different batches a size and
     the parameters updated in place between calls, each call bit for bit
     equal to the eager decode; both sides' host ms and the graphs held;
+  * the training steps' augmentations replayed from their CUDA graphs
+    (``augment_graph``) against the eager chains over 10 calls each:
+    generator states, draws and theta equal after every call, the views
+    equal under deterministic algorithms; host launches a call;
   * the pretraining step on raw images (on-device severity-5 augmentation
-    with the bilateral filter, three views and theta; student/teacher
+    with the bilateral filter, three views and theta, eager in a step
+    object's first step, captured in its second, replayed after, each
+    call's host K3 launches held to its kind; student/teacher
     ViT-Small, SegHead, glyph clusters, char pooling, 65536-wide DINO head,
     both losses, backward, AdamW, EMA; bf16, batch 64,
     ``ccd_pretrain_vit_small.yaml``) through ``build_pretrain_models`` /
@@ -97,7 +103,9 @@ shipped configurations, with random weights from a seed:
 runs only the fp32 attention cases of the kernel checks and the fp32 step
 after the build (``--only decode_graph``: the decode's graphs alone;
 ``--only layer_norm``: the LayerNorm kernels against the plain chain at the
-main paths' shapes, with their times beside their bounds); with
+main paths' shapes, with their times beside their bounds; ``--only
+augment_graph``: the training steps' augmentation graphs against the eager
+chains, draws and generator states equal); with
 ``--kernels-from`` each also with the attention kernels built from another
 checkout's sources (the parent unpacked by ``git archive``, say), in turns
 with this tree's.
@@ -132,6 +140,7 @@ import torch.nn.functional as F
 
 import ccd_tpu_torch
 import ccd_tpu_torch.data.aug_ops as aug_ops_mod
+import ccd_tpu_torch.data.augment as augment_mod
 import ccd_tpu_torch.losses.losses as losses_mod
 import ccd_tpu_torch.models.layers as layers_mod
 import ccd_tpu_torch.models.pretrain as pretrain_model_mod
@@ -1334,7 +1343,8 @@ def decode_graph_phase(card: str) -> dict:
     cache = dec.decode_graphs
     captures = []
     capture = cache.capture
-    cache.capture = lambda fn, x: (captures.append(tuple(x.shape)), capture(fn, x))[1]
+    cache.capture = lambda fn, x, gens: (captures.append(tuple(x.shape)),
+                                         capture(fn, x, gens))[1]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
     sizes = (1024, 1000)
 
@@ -1419,6 +1429,175 @@ def decode_graph_phase(card: str) -> dict:
     emit(result)
     del model, dec, cache, encs
     torch.cuda.empty_cache()
+    return result
+
+
+class DrawRecorder(TorchKey):
+    """A key over the same generator that keeps every draw it hands out, in
+    order (``bernoulli``, ``permutations`` and ``laplace`` draw through
+    ``uniform``; ``split`` and ``fold_in`` hand out the recorder itself)."""
+
+    def __init__(self, generator: torch.Generator):
+        super().__init__(generator)
+        self.draws = []
+
+    def uniform(self, shape, lo=0.0, hi=1.0):
+        self.draws.append(super().uniform(shape, lo, hi))
+        return self.draws[-1]
+
+    def randint(self, shape, lo, hi):
+        self.draws.append(super().randint(shape, lo, hi))
+        return self.draws[-1]
+
+    def normal(self, shape):
+        self.draws.append(super().normal(shape))
+        return self.draws[-1]
+
+
+def with_draws(chain):
+    """``chain(key, images, *args)`` whose output also carries every draw the
+    chain made: (outputs..., draws...)."""
+    def run(key, images, *args):
+        recorder = DrawRecorder(key.generator)
+        out = chain(recorder, images, *args)
+        return (out if isinstance(out, tuple) else (out,)) + tuple(recorder.draws)
+    return run
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+AUGMENT_GRAPH_CALLS = 10
+AUGMENT_GRAPH_BATCHES = {"pretrain_views": 256, "supervised_augment": 288}
+
+
+def host_launches(fn) -> dict:
+    """The host's calls that put work on the card during ``fn()``, by runtime
+    call, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = collections.Counter(ev.name for ev in prof.events() if ev.name in LAUNCH_CALLS)
+    return dict(counts, total=sum(counts.values()))
+
+
+def augment_graph_phase(card: str) -> dict:
+    """The training steps' augmentations replayed from their CUDA graphs
+    against the eager chains: ``pretrain_views`` at severity 5 (batch 256)
+    and ``supervised_augment`` with the normalisation (the finetune step's
+    phase, batch 288), each over AUGMENT_GRAPH_CALLS calls on different
+    rendered words through ``graphed_augment`` (the first eager, the second
+    captured, later ones replayed), beside two eager runs of the chain from
+    the same seed. After every call the generator's state is byte-equal to
+    the eager run's and every draw and theta equal. The views: the k-means,
+    the histogram equalisation and CLAHE sum by a float ``scatter_add_``,
+    whose order the card does not fix, so two eager runs differ where a row
+    took one of them; their differences are reported. The same calls again
+    under ``torch.use_deterministic_algorithms(True)`` (a fixed-order
+    ``scatter_add_``, in the eager chain and in the captured one) hold the
+    views bit for bit, the two eager runs first. Host launches a call,
+    eager and replayed, under the profiler: a replay is one graph launch
+    among a handful (input copy, the generator's seed and offset, output
+    clones). Host and wall ms a call on both sides."""
+    from ccd_tpu_torch.data.augment import graphed_augment
+    from ccd_tpu_torch.training.finetune_step import _augment_normalize
+    from ccd_tpu_torch.utils.cuda_graphs import GraphCache
+    seed = 3_141_592_653
+    chains = {"pretrain_views": (pretrain_views, (5,), 2),
+              "supervised_augment": (_augment_normalize, (supervised_augment,), 1)}
+
+    def differ(p, q) -> dict:
+        rows = (p != q).flatten(1).any(1)
+        return {"max_abs": float((p - q).abs().max()), "rows": int(rows.sum()),
+                "share": float((p != q).float().mean())}
+
+    def calls_of(chain, args, n_out, batches, deterministic: bool):
+        gens = {side: torch.Generator(device="cuda").manual_seed(seed)
+                for side in ("eager", "eager_again", "graph")}
+        graphs = GraphCache("augment_graph")
+        calls = []
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            for i, x in enumerate(batches):
+                a = chain(TorchKey(gens["eager"]), x, *args)
+                again = chain(TorchKey(gens["eager_again"]), x, *args)
+                got = graphed_augment(graphs, gens["graph"], x, chain, *args)
+                same = lambda p, q: all(torch.equal(u, v) for u, v in zip(p, q))  # noqa: E731
+                row = {"call": i, "graphs": len(graphs), "draws": len(a) - n_out,
+                       "state_equal": bool(torch.equal(gens["graph"].get_state(),
+                                                       gens["eager"].get_state())),
+                       "eager_states_equal": bool(torch.equal(gens["eager_again"].get_state(),
+                                                              gens["eager"].get_state())),
+                       "draws_equal": len(got) == len(a) and same(got[n_out:], a[n_out:]),
+                       "eager_draws_equal": len(again) == len(a)
+                       and same(again[n_out:], a[n_out:]),
+                       "theta_equal": n_out == 1 or bool(torch.equal(got[1], a[1])),
+                       "views": differ(got[0], a[0]), "eager_views": differ(again[0], a[0])}
+                calls.append(row)
+                del a, again, got
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return calls, len(graphs)
+
+    report, faults = {}, []
+    for name, (plain, args, n_out) in chains.items():
+        chain = with_draws(plain)
+        b = AUGMENT_GRAPH_BATCHES[name]
+        images, _, _ = make_synthetic_batch(AUGMENT_GRAPH_CALLS * b, seed=11)
+        batches = torch.from_numpy(images).cuda().float().div(255.0).reshape(
+            AUGMENT_GRAPH_CALLS, b, 32, 128, 3)
+        for mode in ("default", "deterministic"):
+            calls, held = calls_of(chain, args, n_out, batches, mode == "deterministic")
+            bad = [r["call"] for r in calls
+                   if not (r["state_equal"] and r["draws_equal"] and r["theta_equal"]
+                           and r["eager_states_equal"] and r["eager_draws_equal"])]
+            if mode == "deterministic":
+                bad += [r["call"] for r in calls
+                        if r["views"]["rows"] or r["eager_views"]["rows"]]
+            if bad or held != 1:
+                faults.append(f"{name} ({mode} algorithms): calls {sorted(set(bad))} apart from "
+                              f"the eager run, {held} graphs")
+            emit({"phase": "augment_graph", "chain": name, "algorithms": mode, "batch": b,
+                  "calls": calls, "gpu": card})
+
+        # the launches and times of one call (the chain alone, without its draws as outputs)
+        timing = GraphCache("augment_graph")
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = batches[0]
+        eager_call = lambda: plain(TorchKey(g), x, *args)                       # noqa: E731
+        graph_call = lambda: graphed_augment(timing, g, x, plain, *args)        # noqa: E731
+        graph_call()                         # eager
+        graph_call()                         # captured
+        launches = {"eager": host_launches(eager_call), "graph": host_launches(graph_call)}
+        if launches["graph"].get("cudaGraphLaunch") != 1 or launches["graph"]["total"] > 8:
+            faults.append(f"{name}: a replay made {launches['graph']}")
+
+        def timed(fn, reps=5):
+            host, wall = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            return {"host_ms": statistics.median(host), "wall_ms": statistics.median(wall)}
+
+        torch.cuda.set_sync_debug_mode("error")  # a replay waits for nothing on the host
+        try:
+            graph_call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        report[name] = {"batch": b, "host_launches_a_call": launches,
+                        "eager": timed(eager_call), "graph": timed(graph_call)}
+        del batches, timing
+        torch.cuda.empty_cache()
+    result = {"phase": "augment_graph", "gpu": card, "seed": seed, **report,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(result)
+    if faults:
+        raise SystemExit(f"augment_graph: {'; '.join(faults)}")
     return result
 
 
@@ -1562,7 +1741,8 @@ class PlainAttention(torch.autograd.Function):
 def plain_versions_in_place_of_kernels():
     """Inside, the ViT's attention, the fused CE, the augmentation's
     bilateral filter and every LayerNorm go through their plain versions:
-    done here by the script, the package has no switch."""
+    done here by the script, the package has no switch. The pretraining
+    step's augmentation then runs eagerly (counted_graphed_augment)."""
     saved = (vit_mod.mha_packed_bias, losses_mod.fused_dino_row_ce,
              aug_ops_mod.bilateral_filter_fused, layers_mod.layer_norm)
     vit_mod.mha_packed_bias = PlainAttention.apply
@@ -1596,11 +1776,15 @@ class PhaseEvents:
 
 
 def kernel_counts():
+    """The kernels' launches by the host, and the pretraining steps'
+    augmentation calls by how their graph cache ran them (see
+    counted_graphed_augment)."""
     return {"K1-fwd": mha_packed_bias.launches, "K1-bwd": mha_packed_bias_bwd.launches,
             "K1b-fwd": flash_attention.launches, "K1b-bwd": flash_attention_bwd.launches,
             "K2-fwd": fused_dino_row_ce.launches, "K2-bwd": fused_dino_row_ce.bwd_launches,
-            "K3": bilateral_filter_fused.launches, "LN-fwd": layer_norm.launches,
-            "LN-bwd": layer_norm.bwd_launches}
+            "K3": bilateral_filter_fused.launches,
+            "LN-fwd": layer_norm.launches, "LN-bwd": layer_norm.bwd_launches,
+            **{kind: AUGMENT_CALLS[kind] for kind in AUGMENT_KINDS}}
 
 
 def reset_kernel_counts() -> None:
@@ -1609,6 +1793,52 @@ def reset_kernel_counts() -> None:
     fused_dino_row_ce.launches = fused_dino_row_ce.bwd_launches = 0
     bilateral_filter_fused.launches = 0
     layer_norm.launches = layer_norm.bwd_launches = 0
+    AUGMENT_CALLS.clear()
+
+
+# how the pretraining step's graph cache runs an augmentation call, and how
+# many times the host launches an eager run's K3 in it: once eagerly, twice
+# in a capture (the warm-up and the captured run), never in a replay (the
+# graph launches what the capture launched)
+AUGMENT_KINDS = {"augment-eager": 1, "augment-capture": 2, "augment-replay": 0}
+AUGMENT_CALLS = collections.Counter()
+
+
+def counted_graphed_augment(graphs, generator, images, chain, *args):
+    """The pretraining step's ``graphed_augment``, its call counted by kind,
+    the kind read from the cache before the call: a replay if the key holds
+    a graph, a capture if the key was seen once, eager otherwise. The K3
+    launches the host makes in the call must be the kind's share of an
+    eager run's: two at severity 5 (one a photometric chain), none at
+    another severity. Where the plain versions stand in, the chain runs
+    eagerly and uncounted: a graph captured before would replay the kernel,
+    and one captured now would hold the plain version."""
+    if aug_ops_mod.bilateral_filter_fused is bilateral_filter_plain:
+        return chain(TorchKey(generator), images, *args)
+    key = augment_mod.graph_key(generator, images, chain, args)
+    kind = ("augment-eager" if not augment_mod._graphable(images)
+            else "augment-replay" if key in graphs._graphs
+            else "augment-capture" if key in graphs._seen else "augment-eager")
+    before = bilateral_filter_fused.launches
+    out = augment_mod.graphed_augment(graphs, generator, images, chain, *args)
+    host = bilateral_filter_fused.launches - before
+    eager = LAUNCHES_PER_STEP["K3"] if chain is pretrain_views and args == (5,) else 0
+    if host != AUGMENT_KINDS[kind] * eager:
+        raise SystemExit(f"augmentation ({kind}): {host} K3 launches on the host, expected "
+                         f"{AUGMENT_KINDS[kind] * eager}")
+    AUGMENT_CALLS[kind] += 1
+    return out
+
+
+def due(table: dict, counts: dict, steps: int = 1) -> dict:
+    """What ``counts`` (``kernel_counts()``, or a step's share of it) should
+    read after ``steps`` steps that each launch ``table``'s kernels, with
+    their augmentation calls as ``counts`` has them: ``table``'s K3 (an
+    eager augmentation's) as many times as AUGMENT_KINDS gives each call."""
+    want = {k: v * steps for k, v in table.items()}
+    want.update({kind: counts[kind] for kind in AUGMENT_KINDS},
+                K3=table["K3"] * sum(n * counts[kind] for kind, n in AUGMENT_KINDS.items()))
+    return want
 
 
 def recognizer_norms(model) -> tuple:
@@ -1710,7 +1940,8 @@ def pretrain_twin(state: PretrainState) -> PretrainState:
 
 def run_pretrain_step(step, st, raw, masks, what: str):
     """One step, timed with CUDA events: (metrics, the launches it made, ms);
-    a loss that is not finite ends the run."""
+    a loss that is not finite, or another count of augmentation calls than
+    one (none where the plain versions stand in), ends the run."""
     before = kernel_counts()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
@@ -1718,6 +1949,9 @@ def run_pretrain_step(step, st, raw, masks, what: str):
     b.record()
     torch.cuda.synchronize()
     made = {k: v - before[k] for k, v in kernel_counts().items()}
+    calls = sum(made[kind] for kind in AUGMENT_KINDS)
+    if calls != int(aug_ops_mod.bilateral_filter_fused is not bilateral_filter_plain):
+        raise SystemExit(f"{what}: {calls} counted augmentation calls in one step")
     metrics = {k: float(v) for k, v in metrics.items()}
     if not all(np.isfinite(metrics[k]) for k in ("loss", "mask_loss", "dino_loss")):
         raise SystemExit(f"{what}: a loss is not finite: {metrics}")
@@ -1798,8 +2032,9 @@ def pretrain_path(card: str) -> dict:
     history, step_ms = [], {"gt_masks": [], "predicted_masks": []}
     first, made, _ = run_step(step_gt, state)
     history.append(first)
-    if made != LAUNCHES_PER_STEP:
-        raise SystemExit(f"pretrain path: step launched {made}, expected {LAUNCHES_PER_STEP}")
+    if made != due(LAUNCHES_PER_STEP, made):
+        raise SystemExit(f"pretrain path: step launched {made}, expected "
+                         f"{due(LAUNCHES_PER_STEP, made)}")
 
     # ---- the first step again from the same state, through the plain versions
     compared = against_plain_step("pretrain path", step_gt, state, twin, raw, masks, first)
@@ -1813,9 +2048,9 @@ def pretrain_path(card: str) -> dict:
                             ("predicted_masks", step_predicted, PREDICTED_STEPS)):
         for _ in range(n):
             metrics, made, ms = run_step(step, state)
-            if made != LAUNCHES_PER_STEP:
+            if made != due(LAUNCHES_PER_STEP, made):
                 raise SystemExit(f"pretrain path: step launched {made}, expected "
-                                 f"{LAUNCHES_PER_STEP}")
+                                 f"{due(LAUNCHES_PER_STEP, made)}")
             history.append(dict(metrics, regime=regime))
             step_ms[regime].append(ms)
             flood_rounds.append(int(metrics["cluster_rounds"]))
@@ -1836,8 +2071,7 @@ def pretrain_path(card: str) -> dict:
     prof_wall, busy, top, n_kernels = device_busy(lambda: step_gt(state, raw, masks))
     n_steps = GT_STEPS + PREDICTED_STEPS + 2
     launches = kernel_counts()
-    if launches != {k: v * n_steps for k, v in LAUNCHES_PER_STEP.items()} \
-            or state.iteration != n_steps:
+    if launches != due(LAUNCHES_PER_STEP, launches, n_steps) or state.iteration != n_steps:
         raise SystemExit(f"pretrain path: {launches} launches over {state.iteration} steps")
     # after the count: its launches are not the path's
     augment = augmentation_alone(raw, pretrain_views_checked, "pretrain_views")
@@ -1929,7 +2163,7 @@ def finetune_path(card: str) -> dict:
 
     reset_kernel_counts()
     first, made, _ = run_step(state)
-    if made != FT_LAUNCHES_PER_STEP:
+    if made != due(FT_LAUNCHES_PER_STEP, made):
         raise SystemExit(f"finetune path: step launched {made}, expected {FT_LAUNCHES_PER_STEP}")
 
     # ---- the first step again from the same state and draws, plain versions
@@ -1955,7 +2189,7 @@ def finetune_path(card: str) -> dict:
     step_ms, losses = [], [first]
     for _ in range(FT_STEPS):
         loss, made, ms = run_step(state)
-        if made != FT_LAUNCHES_PER_STEP:
+        if made != due(FT_LAUNCHES_PER_STEP, made):
             raise SystemExit(f"finetune path: step launched {made}, expected "
                              f"{FT_LAUNCHES_PER_STEP}")
         step_ms.append(ms)
@@ -1977,7 +2211,7 @@ def finetune_path(card: str) -> dict:
     prof_wall, busy, top, n_kernels = device_busy(lambda: step(state, raw, targets))
     n_steps = FT_STEPS + 3
     launches = kernel_counts()
-    if launches != {k: v * n_steps for k, v in FT_LAUNCHES_PER_STEP.items()} \
+    if launches != due(FT_LAUNCHES_PER_STEP, launches, n_steps) \
             or state.iteration != n_steps:
         raise SystemExit(f"finetune path: {launches} launches over {state.iteration} steps")
     # after the count: its launches are not the path's
@@ -2225,9 +2459,9 @@ def vit_base_pretrain_path(card: str) -> dict:
                    ("packed_attention_backward", (2 * batch, 256, 3 * 512), 8): 12,
                    ("fused_dino_ce_forward", (rows, 65536)): 1,
                    ("fused_dino_ce_backward", (rows, 65536)): 1}
-    if made != LAUNCHES_PER_STEP or dict(shapes) != want_shapes:
+    if made != due(LAUNCHES_PER_STEP, made) or dict(shapes) != want_shapes:
         raise SystemExit(f"{what}: step launched {made} at {dict(shapes)}, expected "
-                         f"{LAUNCHES_PER_STEP} at {want_shapes}")
+                         f"{due(LAUNCHES_PER_STEP, made)} at {want_shapes}")
     compared = against_plain_step(what, step, state, twin, raw, masks, first,
                                   left_out=EMPTY_SLOT_BIASES)
     del twin
@@ -2236,16 +2470,16 @@ def vit_base_pretrain_path(card: str) -> dict:
     history, step_ms = [first], []
     for _ in range(VIT_BASE_STEPS - 1):
         metrics, made, ms = run_pretrain_step(step_open, state, raw, masks, what)
-        if made != LAUNCHES_PER_STEP:
-            raise SystemExit(f"{what}: step launched {made}, expected {LAUNCHES_PER_STEP}")
+        if made != due(LAUNCHES_PER_STEP, made):
+            raise SystemExit(f"{what}: step launched {made}, expected "
+                             f"{due(LAUNCHES_PER_STEP, made)}")
         history.append(metrics)
         step_ms.append(ms)
     peak_bytes = torch.cuda.max_memory_allocated()
     prof_wall, busy, top, n_kernels = device_busy(lambda: step_open(state, raw, masks))
     n_steps = VIT_BASE_STEPS + 1
     launches = kernel_counts()
-    if launches != {k: v * n_steps for k, v in LAUNCHES_PER_STEP.items()} \
-            or state.iteration != n_steps:
+    if launches != due(LAUNCHES_PER_STEP, launches, n_steps) or state.iteration != n_steps:
         raise SystemExit(f"{what}: {launches} launches over {state.iteration} steps")
     gain_frozen = bool(torch.equal(student.head.last_layer.weight_g, gain0))
     direction_moved = float((student.head.last_layer.weight_v - direction0).abs().max())
@@ -2293,7 +2527,7 @@ def severity_2_pretrain_step(card: str) -> dict:
     runs = [run_pretrain_step(step, state, raw, masks, "severity-2 pretrain step")
             for _ in range(2)]
     launches = kernel_counts()
-    if any(made != want for _, made, _ in runs):
+    if any(made != due(want, made) for _, made, _ in runs):
         raise SystemExit(f"severity-2 pretrain step: launched {[m for _, m, _ in runs]}, "
                          f"expected {want} a step")
     emit({"phase": "main_path", "path": "pretrain_severity_2", "gpu": card,
@@ -2328,21 +2562,22 @@ def fp32_step_phase(card: str, kernels: str = "this tree") -> dict:
     twin = pretrain_twin(state)
     reset_kernel_counts()
     first, made, first_ms = run_pretrain_step(step, state, raw, masks, what)
-    if made != LAUNCHES_PER_STEP:
-        raise SystemExit(f"{what}: step launched {made}, expected {LAUNCHES_PER_STEP}")
+    if made != due(LAUNCHES_PER_STEP, made):
+        raise SystemExit(f"{what}: step launched {made}, expected "
+                         f"{due(LAUNCHES_PER_STEP, made)}")
     compared = against_plain_step(what, step, state, twin, raw, masks, first)
     del twin
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     runs = [run_pretrain_step(step, state, raw, masks, what) for _ in range(FP32_STEP_TIMED)]
-    if any(m != LAUNCHES_PER_STEP for _, m, _ in runs):
+    if any(m != due(LAUNCHES_PER_STEP, m) for _, m, _ in runs):
         raise SystemExit(f"{what}: launched {[m for _, m, _ in runs]}, expected "
                          f"{LAUNCHES_PER_STEP} a step")
     peak = torch.cuda.max_memory_allocated()
     wall, rows = profiled_kernels(lambda: step(state, raw, masks))
     launches = kernel_counts()
     n_steps = FP32_STEP_TIMED + 2
-    if launches != {k: v * n_steps for k, v in LAUNCHES_PER_STEP.items()}:
+    if launches != due(LAUNCHES_PER_STEP, launches, n_steps):
         raise SystemExit(f"{what}: {launches} launches over {n_steps} steps")
     busy = sum(r[0] for r in rows) if rows else None
     attention = {name: {"device_ms": ms, "calls": n} for ms, n, name in rows
@@ -2384,7 +2619,7 @@ def abinet_finetune_step(card: str) -> dict:
     runs = [run_finetune_step(step, state, raw, targets, "abinet finetune step")
             for _ in range(2)]
     launches = kernel_counts()
-    if any(made != FT_LAUNCHES_PER_STEP for _, made, _ in runs):
+    if any(made != due(FT_LAUNCHES_PER_STEP, made) for _, made, _ in runs):
         raise SystemExit(f"abinet finetune step: launched {[m for _, m, _ in runs]}, expected "
                          f"{FT_LAUNCHES_PER_STEP} a step")
     emit({"phase": "main_path", "path": "finetune_abinet", "gpu": card,
@@ -2438,14 +2673,14 @@ def optimizers_phase(card: str) -> dict:
             metrics, made_timed, ms = run_pretrain_step(step, state, raw, masks, what)
             history.append(metrics)
             step_ms.append(ms)
-            if made_timed != LAUNCHES_PER_STEP:
+            if made_timed != due(LAUNCHES_PER_STEP, made_timed):
                 raise SystemExit(f"{what}: step launched {made_timed}, expected "
-                                 f"{LAUNCHES_PER_STEP}")
+                                 f"{due(LAUNCHES_PER_STEP, made_timed)}")
         peak = torch.cuda.max_memory_allocated()
         n_steps = 2 + OPT_TIMED_STEPS
         mine = kernel_counts()
-        if made != LAUNCHES_PER_STEP or mine != {k: v * n_steps
-                                                 for k, v in LAUNCHES_PER_STEP.items()}:
+        if made != due(LAUNCHES_PER_STEP, made) \
+                or mine != due(LAUNCHES_PER_STEP, mine, n_steps):
             raise SystemExit(f"{what}: {mine} launches over {n_steps} steps")
         prof_wall, busy, _, _ = device_busy(lambda: step(state, raw, masks))
         momentum = float(torch.stack([t.float().norm() for t in state.opt_state.trace]).norm())
@@ -2493,7 +2728,7 @@ def remat_phase(card: str) -> dict:
         timed = [run_pretrain_step(step, state, raw, masks, what) for _ in range(REMAT_TIMED_STEPS)]
         launches = kernel_counts()
         prof_wall, busy, _, _ = device_busy(lambda: step(state, raw, masks))
-        if made != want or any(m != want for _, m, _ in timed):
+        if made != due(want, made) or any(m != due(want, m) for _, m, _ in timed):
             raise SystemExit(f"{what}: launched {[made] + [m for _, m, _ in timed]}, expected "
                              f"{want} a step")
         runs[remat] = {"first": first, "moments": moments, "generators": gens,
@@ -2574,7 +2809,7 @@ def steps_with_and_without_group(what: str, run, group_step, lone_step, state, t
     grouped, grouped_ms, lone, lone_ms = [], [], [], []
     for _ in range(DP_STEPS):
         losses, made, ms = run(group_step, state)
-        if made != launches_per_step:
+        if made != due(launches_per_step, made):
             raise SystemExit(f"{what}: a step through the group launched {made}, expected "
                              f"{launches_per_step}")
         launches.update(made)
@@ -2846,7 +3081,7 @@ def tensor_parallel_phase(card: str) -> dict:
             one_ms.append(ms)
         one_launches = kernel_counts()
         one_peak = torch.cuda.max_memory_allocated()
-        if one_launches != {k: v * TP_STEPS for k, v in LAUNCHES_PER_STEP.items()}:
+        if one_launches != due(LAUNCHES_PER_STEP, one_launches, TP_STEPS):
             raise SystemExit(f"tensor_parallel: the one-process steps launched {one_launches}")
         weight_v = state.student.head.last_layer.weight_v.detach().float().clone()
         center = state.center.detach().float().clone()
@@ -2899,8 +3134,7 @@ def tensor_parallel_phase(card: str) -> dict:
 
     # ---- the gates
     rank0 = ranks[0]
-    want = {k: v * TP_STEPS for k, v in LAUNCHES_PER_STEP.items()}
-    want.update({"K2-fwd": 0, "K2-bwd": 0})
+    want = dict(LAUNCHES_PER_STEP, **{"K2-fwd": 0, "K2-bwd": 0})
     loss_rel = max(abs(a - b) / abs(b) for r in ranks for got, ref in zip(r["losses"], one_losses)
                    for a, b in zip(got, ref))
     weight_v_rel = float((gathered["weight_v"] - weight_v.cpu()).norm() / weight_v.norm())
@@ -2909,8 +3143,9 @@ def tensor_parallel_phase(card: str) -> dict:
     problems = []
     if [r["layout"] for r in ranks] != [[0, i, 1, TP_WORLD] for i in range(TP_WORLD)]:
         problems.append(f"layouts {[r['layout'] for r in ranks]}")
-    if any(r["kernel_launches"] != want for r in ranks):
-        problems.append(f"launches {[r['kernel_launches'] for r in ranks]}, expected {want}")
+    if any(r["kernel_launches"] != due(want, r["kernel_launches"], TP_STEPS) for r in ranks):
+        problems.append(f"launches {[r['kernel_launches'] for r in ranks]}, expected {want} "
+                        f"a step")
     if not loss_rel <= TOL_STEP_LOSS_REL:
         problems.append(f"losses differ from one process's by {loss_rel}")
     if not weight_v_rel <= TOL_STEP_GRAD_REL or not center_rel <= TOL_STEP_GRAD_REL \
@@ -2966,7 +3201,8 @@ def tensor_parallel_phase(card: str) -> dict:
           "seconds": time.time() - t0})
     if problems:
         raise SystemExit("tensor_parallel: " + "; ".join(problems))
-    return {"tensor_parallel": {k: sum(r["kernel_launches"][k] for r in ranks) for k in want},
+    return {"tensor_parallel": {k: sum(r["kernel_launches"][k] for r in ranks)
+                                for k in ranks[0]["kernel_launches"]},
             "tensor_parallel_one_process": one_launches}
 
 
@@ -3039,7 +3275,7 @@ def last_selfattention_phase(card: str) -> int:
     row_sums = attn.float().sum(-1)
     err = float((attn.float() - plain).abs().max())
     sum_err = float((row_sums - 1).abs().max())
-    want = dict.fromkeys(LAUNCHES_PER_STEP, 0)
+    want = dict.fromkeys(launches, 0)
     want["K1-fwd"] = len(vit.blocks) - 1
     want["LN-fwd"] = 2 * len(vit.blocks)  # the last block's second norm runs too, no final one
     emit({"phase": "main_path", "path": "last_selfattention", "gpu": card,
@@ -3819,8 +4055,9 @@ def parse_args(argv):
     parser.add_argument("--only", action="append", choices=ONLY_PHASES,
                         help="run only this phase after the build (repeatable): the fp32 "
                              "attention cases of the kernels phase, the fp32 ViT-Tiny step, "
-                             "the greedy decode's CUDA graphs against the eager decode, or the "
-                             "LayerNorm kernels' checks and times")
+                             "the greedy decode's CUDA graphs against the eager decode, the "
+                             "LayerNorm kernels' checks and times, or the training steps' "
+                             "augmentation graphs against the eager chains")
     parser.add_argument("--kernels-from", metavar="DIR",
                         help="with --only: run each phase also with the attention kernels "
                              "built from DIR/ccd_tpu_torch/csrc (a checkout of another commit, "
@@ -3832,7 +4069,7 @@ def parse_args(argv):
     return args
 
 
-ONLY_PHASES = ("attention_fp32", "fp32_step", "decode_graph", "layer_norm")
+ONLY_PHASES = ("attention_fp32", "fp32_step", "decode_graph", "layer_norm", "augment_graph")
 
 
 def only_phases(card: str, phases, other) -> None:
@@ -3853,6 +4090,8 @@ def only_phases(card: str, phases, other) -> None:
     for phase in phases:
         if phase == "decode_graph":  # no attention kernel in the decoder
             decode_graph_phase(card)
+        elif phase == "augment_graph":  # nor in the augmentation
+            augment_graph_phase(card)
         elif phase == "layer_norm":
             layer_norm_phase(card)
         elif other is None:
@@ -3995,6 +4234,7 @@ def main(argv=()) -> None:
     reset_kernel_counts()
     eval_launches = evaluation_path(card)
     decode_graph_phase(card)
+    augment_graph_phase(card)
     reset_kernel_counts()
     train_launches = pretrain_path(card)
     reset_kernel_counts()
@@ -4093,6 +4333,9 @@ def main(argv=()) -> None:
                      "ccd_tpu_torch/csrc/bilateral.cu",
                      "ccd_tpu/data/aug_ops.py:995", sum(k3.values()), bil[0], bil,
                      launches_by_path=k3,
+                     # the host's launches above; each replay launches its capture's
+                     graph_replays_by_path={path: by_path[path]["augment-replay"]
+                                            for path in k3},
                      device_ms=bil[0]["device_ms"], wrapper_call_ms=bil[0]["wrapper_call_ms"],
                      resources=bilateral_resources(),
                      # max radius 5: 81 taps for each of a thread's 4 pixels
@@ -4112,6 +4355,7 @@ def main(argv=()) -> None:
 
 
 if __name__ == "__main__":
+    pretrain_step_mod.graphed_augment = counted_graphed_augment
     if len(sys.argv) == 5 and sys.argv[1] == TP_WORKER_FLAG:
         tensor_parallel_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     else:

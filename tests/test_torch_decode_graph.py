@@ -33,12 +33,13 @@ CFG = dict(n_layers=2, d_embedding=64, n_head=2, d_k=32, d_v=32, d_model=64, d_i
 
 
 class FakeCapture:
-    """``capture(fn, static_in) -> (replay, static_out)`` without a card."""
+    """``capture(fn, static_in, generators) -> (replay, static_out)``
+    without a card (the decode names no generator)."""
 
     def __init__(self):
         self.captures = self.replays = 0
 
-    def __call__(self, fn, static_in):
+    def __call__(self, fn, static_in, generators=()):
         self.captures += 1
         static_out = fn(static_in)
 
